@@ -1,0 +1,382 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch + CUDA port (sigmap_tpu_torch) on one GPU.
+
+  python3 chip_smoke.py                  # 12 Mb genome, 2048 reads, B=2048
+
+1. prints the versions, fails when no CUDA device is visible, then prints
+   the card (nvidia-smi name and power limit);
+2. builds the CUDA kernels (csrc/) and the native core from the checkout;
+3. compares each kernel with its plain PyTorch version on the card, exactly,
+   on the inputs the main path's own functions produce for the first batch
+   of the workload below, and times both with CUDA events (median after
+   warm-up);
+4. drives the main path through the CLI (``-i`` then ``-m``) on a synthetic
+   genome with BLOW5 (zlib) reads, scores the PAF against the simulation
+   truth, and checks that every kernel of the path was launched;
+5. maps the reads again with the rescue oracle built (warm): reads/s, and
+   under torch.profiler the device's busy time (union of its kernel, memcpy
+   and memset intervals) and idle share.
+
+A line before the last is the per-kernel JSON record, the last line
+``{"ok": true, "device": {...}}``.  Any failure raises (non-zero exit, no
+result line).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+READ_BASES = 3000     # read length of the round-5 workload
+SEED = 1              # genome seed; reads use SEED + 1
+SWEEP_BLOCKS = 256    # seed blocks of a full round checked against plain B3
+
+KERNELS = {
+    "peaks": ("sigmap_tpu_torch/csrc/events.cu",
+              "sigmap_tpu/signal/events_pallas.py:28"),
+    "compress_keep": ("sigmap_tpu_torch/csrc/events.cu",
+                      "sigmap_tpu/signal/events_pallas.py:143"),
+    "sweep": ("sigmap_tpu_torch/csrc/sweep.cu",
+              "sigmap_tpu/ops/sweep_kernel.py:44"),
+    "chain_fused": ("sigmap_tpu_torch/csrc/chain_fused.cu",
+                    "sigmap_tpu/ops/chain_fused.py:48"),
+}
+
+# chrome-trace categories of work on the device
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def cuda_ms(fn, reps: int):
+    """Median milliseconds of fn() over reps runs after one warm-up."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def max_abs_err(pairs):
+    """Largest |kernel - plain| over pairs of tensors (exact match -> 0)."""
+    err = 0.0
+    for k, p in pairs:
+        if k.shape != p.shape or k.dtype != p.dtype:
+            raise AssertionError(f"shape/dtype {k.shape} {k.dtype} vs "
+                                 f"{p.shape} {p.dtype}")
+        d = (k.double() - p.double()).abs()
+        if d.numel():
+            err = max(err, float(d.max()))
+    return err
+
+
+def check(records, name, shape, got, kernel, plain, plain_reps=2):
+    """Kernel outputs `got` (tuple) vs plain(); time kernel() and plain()."""
+    err = max_abs_err(list(zip(got, plain())))
+    records[name] = dict(max_abs_err=err, shape=shape,
+                         ms=cuda_ms(kernel, 5),
+                         plain_ms=cuda_ms(plain, plain_reps))
+    log(f"{name} {shape}: max_abs_err {err} kernel "
+        f"{records[name]['ms']:.3f} ms plain {records[name]['plain_ms']:.3f}"
+        f" ms")
+    assert err == 0.0, f"{name} kernel disagrees with its plain version"
+
+
+def make_workload(args, work):
+    """Genome FASTA, pore model and BLOW5 reads in `work`; returns reads."""
+    from sigmap_tpu.io.pore_model import make_synthetic_pore_model
+    from sigmap_tpu.io.slow5 import COMP_ZLIB, SIGCOMP_NONE, write_blow5
+    from sigmap_tpu.synth import (genome_to_fasta_str, random_genome,
+                                  simulate_reads)
+
+    pore = make_synthetic_pore_model(k=6, seed=0)
+    genome = random_genome(int(args.genome_mb * 1e6), seed=SEED)
+    with open(os.path.join(work, "ref.fa"), "w") as f:
+        f.write(genome_to_fasta_str(genome))
+    pore.save(os.path.join(work, "pore.model"))
+    reads = simulate_reads(pore, genome, args.reads, seed=SEED + 1,
+                           read_bases=READ_BASES)
+    sig = os.path.join(work, "signals")
+    os.makedirs(sig, exist_ok=True)
+    write_blow5(
+        os.path.join(sig, "reads.blow5"),
+        [dict(read_id=r.read_id, raw=r.raw, digitisation=r.digitisation,
+              range=r.range, offset=r.offset) for r in reads],
+        rec_comp=COMP_ZLIB, sig_comp=SIGCOMP_NONE,
+    )
+    return reads
+
+
+def compare_kernels(map_args, records, dev):
+    """Phase 3: every kernel vs its plain version on the inputs that the
+    main path's functions give it for the first batch.  Returns the mapper
+    and the reads (phase 5 maps them again)."""
+    import numpy as np
+    import torch
+
+    from sigmap_tpu.cli import build_parser, make_config
+    from sigmap_tpu.index.build import SignalIndex
+    from sigmap_tpu.io.signals import load_all_read_signals
+    from sigmap_tpu_torch.mapping import turbo as T
+    from sigmap_tpu_torch.mapping.sweep_search import prepare_round
+    from sigmap_tpu_torch.ops import chain_fused as CF
+    from sigmap_tpu_torch.ops import sweep_kernel as SK
+    from sigmap_tpu_torch.signal import events as EV
+    from sigmap_tpu_torch.signal import events_kernels as EK
+
+    args = build_parser().parse_args(map_args)
+    cfg = make_config(args)
+    m = cfg.mapping
+    idx = SignalIndex.load(args.ref_index)
+    signals = load_all_read_signals(args.sig_dir, m.pa_lo, m.pa_hi)
+    mapper = T.TurboMapper(idx, cfg, device=dev)
+    p = mapper.p
+
+    # --- B1 / B2 on the batch's chunk rows ---------------------------------
+    qd, qoff, qscale, n_full, _ = mapper.upload_batch(
+        signals[: cfg.runtime.read_batch])
+    B, NC, Cs = qd.shape
+    pa, clen = T.chunk_rows(qd, qoff, qscale, n_full)
+    ec, delta = cfg.event, m.compress_delta
+    fs = EV.feature_stages(pa, clen, ec, p.max_events, p.max_features, delta)
+    check(records, "peaks", f"R={B * NC} C={Cs}", (fs.emits,),
+          lambda: (EK.detect_peaks(fs.t1, fs.t2, clen, ec),),
+          lambda: (EK.detect_peaks_plain(fs.t1, fs.t2, clen, ec),))
+    check(records, "compress_keep", f"R={B * NC} E={p.max_events}",
+          (fs.keep,),
+          lambda: (EK.compress_keep(fs.norm, fs.num_events, delta),),
+          lambda: (EK.compress_keep_plain(fs.norm, fs.num_events, delta),))
+
+    # --- B3 on round 0's seeds, against the whole tile store ---------------
+    feats = fs.feats.reshape(B, NC, -1)
+    counts = fs.counts.reshape(B, NC)
+    st = T.init_round_state(B, p.RING, dev)
+    seeds = T.round_seeds(feats[:, 0], counts[:, 0], n_full, st, p,
+                          m.step_size, idx.dim, m)[2]
+    s = mapper.store
+    qr_s, bm, _ = prepare_round(
+        seeds.reshape(B * p.S, 8), s.cum, s.tiles.shape[0], s.rot, s.mu,
+        s.origin, m.search_radius, p.TILE, idx.dim, p.block, s.radixes,
+        s.span, s.cell_width)
+    G = bm.shape[1]
+    kw = dict(radius=m.search_radius, K=p.K, TILE=p.TILE, dim=idx.dim,
+              block=p.block)
+    full = SK.sweep_search(qr_s, bm, s.tiles, s.meta, **kw)
+    ms_full = cuda_ms(lambda: SK.sweep_search(qr_s, bm, s.tiles, s.meta,
+                                              **kw), 3)
+    ns = min(G, SWEEP_BLOCKS)
+    pick = np.sort(np.random.default_rng(SEED).choice(G, ns, replace=False))
+    pick = torch.from_numpy(pick).to(dev)
+    sub_seeds = qr_s.view(G, p.block, 8)[pick].reshape(-1, 8).contiguous()
+    sub_bm = bm[:, pick].contiguous()
+    rows = tuple(o.view(G, p.block, -1)[pick].reshape(ns * p.block, -1)
+                 for o in full)
+    check(records, "sweep", f"Q={B * p.S} G={G} sampled_blocks={ns}", rows,
+          lambda: SK.sweep_search(sub_seeds, sub_bm, s.tiles, s.meta, **kw),
+          lambda: SK.sweep_search_plain(sub_seeds, sub_bm, s.tiles, s.meta,
+                                        **kw), plain_reps=1)
+    records["sweep"]["ms_full_round"] = ms_full
+    log(f"sweep full round Q={B * p.S}: kernel {ms_full:.3f} ms")
+
+    # --- B4 on round 1's anchors and round 0's carry ------------------------
+    st, _, _ = T.turbo_round(
+        s, feats[:, 0], counts[:, 0], n_full, st, p, m.step_size,
+        m.search_radius, idx.dim, cfg.chain, m)
+    r1 = 1 % NC
+    ra = T.round_anchors(s, feats[:, r1], counts[:, r1], n_full, st, p,
+                         m.step_size, m.search_radius, idx.dim, m)
+    c = [x.contiguous() for x in st.carry[3:]]
+    ckw = dict(radius=m.search_radius, dim=idx.dim, ring=p.RING,
+               cfg=cfg.chain, kb=p.K)
+    args4 = (ra.a_t, ra.a_q, ra.a_d, ra.a_g, *c)
+
+    def flat(out):      # (sum_f, sum_i, carry ring arrays) -> one tuple
+        return (out[0], out[1], *out[2])
+
+    check(records, "chain_fused",
+          f"A={ra.a_t.shape[0]} B={B} RING={p.RING} kb={p.K}",
+          flat(CF.chain_fused(*args4, **ckw)),
+          lambda: CF.chain_fused(*args4, **ckw),
+          lambda: flat(CF.chain_fused_plain(*args4, **ckw)))
+    return mapper, signals
+
+
+def device_busy(trace_path):
+    """(busy ms, {name: (ms, count)}) of the device work in a chrome trace;
+    busy time is the union of the intervals, so overlap counts once."""
+    with open(trace_path) as f:
+        ev = [e for e in json.load(f)["traceEvents"]
+              if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS]
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted((e["ts"], e["ts"] + e["dur"]) for e in ev):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    by_name: dict = {}
+    for e in ev:
+        ms, n = by_name.get(e["name"], (0.0, 0))
+        by_name[e["name"]] = (ms + e["dur"] / 1000, n + 1)
+    return busy / 1000, by_name
+
+
+def profile_warm(mapper, signals, work):
+    """Phase 5: the reads mapped again once the rescue oracle is built."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    t0 = time.perf_counter()
+    mapper._get_oracle()
+    oracle_s = time.perf_counter() - t0
+    mapper.streaming_map(signals)                  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mapper.streaming_map(signals)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        mapper.streaming_map(signals)
+        torch.cuda.synchronize()
+        prof_s = time.perf_counter() - t0
+    trace = os.path.join(work, "warm_trace.json")
+    prof.export_chrome_trace(trace)
+    busy_ms, by_name = device_busy(trace)
+    n = len(signals)
+    log(f"warm: rescue oracle build {oracle_s:.3f} s; streaming_map of {n} "
+        f"reads {warm_s:.3f} s = {n / warm_s:.3f} reads/s")
+    log(f"warm profile: wall {prof_s * 1000:.3f} ms, device busy "
+        f"{busy_ms:.3f} ms, idle share {1 - busy_ms / (prof_s * 1000):.4f}")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    for name, (ms, cnt) in top:
+        log(f"  device {ms:10.3f} ms {cnt:6d}x  {name[:70]}")
+
+
+def score_paf(path, reads):
+    """(mapped, correct) against the simulation truth (bench.py accuracy)."""
+    by_name = {}
+    with open(path) as f:
+        for line in f:
+            c = line.rstrip("\n").split("\t")
+            if int(c[11]) > 60:
+                continue
+            by_name[c[0]] = (c[4], int(c[7]), int(c[8]))
+    mapped = correct = 0
+    for r in reads:
+        hit = by_name.get(r.read_id)
+        if hit is None:
+            continue
+        mapped += 1
+        strand, lo, hi = hit
+        if (strand == "+") == (r.strand == 1) and lo < r.ref_end \
+                and hi > r.ref_start:
+            correct += 1
+    return mapped, correct
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--genome-mb", type=float, default=12.0)
+    ap.add_argument("--reads", type=int, default=2048)
+    ap.add_argument("--batch", type=int, default=2048)
+    args = ap.parse_args()
+
+    import torch
+
+    log(f"python {sys.version.split()[0]} torch {torch.__version__} "
+        f"cuda {torch.version.cuda}")
+    if not torch.cuda.is_available():
+        log("no CUDA device visible")
+        sys.exit(1)
+    sys.path.insert(0, ROOT)
+    from sigmap_tpu_torch import LAUNCHES, _build, cli, reset_launches
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True)
+    card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else ""
+    log(f"nvidia-smi: {card or smi.stderr.strip()}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    t0 = time.perf_counter()
+    _build.kernels()
+    _build.native()
+    log(f"build: kernels + native core {time.perf_counter() - t0:.1f} s")
+
+    work = os.path.join(ROOT, "build", "chip_smoke")
+    os.makedirs(work, exist_ok=True)
+    t0 = time.perf_counter()
+    reads = make_workload(args, work)
+    log(f"workload: {args.genome_mb} Mb genome, {len(reads)} reads x "
+        f"{READ_BASES} bases ({time.perf_counter() - t0:.1f} s)")
+    common = ["-r", os.path.join(work, "ref.fa"),
+              "-p", os.path.join(work, "pore.model")]
+    t0 = time.perf_counter()
+    rc = cli.main(["-i", *common, "-o", os.path.join(work, "idx")])
+    assert rc == 0, f"index build failed ({rc})"
+    log(f"index: {time.perf_counter() - t0:.1f} s")
+
+    paf = os.path.join(work, "out.paf")
+    map_args = ["-m", *common, "-x", os.path.join(work, "idx"),
+                "-s", os.path.join(work, "signals"), "-o", paf,
+                "--read-batch", str(args.batch)]
+    records: dict = {}
+    mapper, signals = compare_kernels(map_args, records, torch.device("cuda"))
+
+    resident = torch.cuda.memory_allocated()      # phase 3's mapper
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    rc = cli.main(map_args)
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    assert rc == 0, f"mapping failed ({rc})"
+    run = cli.LAST_MAP
+    mapped, correct = score_paf(paf, reads)
+    n = len(reads)
+    rps = run["reads"] / run["map_s"]
+    log(f"main path: {run['reads']} reads in {run['map_s']:.3f} s = "
+        f"{rps:.3f} reads/s; mapped {mapped}/{n}, correct {correct}/{n}; "
+        f"rescued {run['rescued']} ({run['rescued_mapped']} mapped); "
+        f"device memory peak "
+        f"{(torch.cuda.max_memory_allocated() - resident) / 2**20:.0f} MiB "
+        f"(beyond phase 3's resident mapper); launches {launches}")
+    assert mapped >= 0.99 * n, f"only {mapped}/{n} reads mapped"
+    assert correct >= 0.99 * n, f"only {correct}/{n} reads mapped correctly"
+    for name, cnt in launches.items():
+        assert cnt > 0, f"kernel {name} was not launched on the main path"
+
+    profile_warm(mapper, signals, work)
+    mapper.close()
+
+    print(json.dumps({"kernels": [
+        dict(name=name, route="cuda", source=src, replaces=rep,
+             launches=launches[name], **records[name])
+        for name, (src, rep) in KERNELS.items()
+    ]}))
+    print(f"card: {card}")
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

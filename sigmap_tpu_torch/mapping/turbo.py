@@ -1,0 +1,639 @@
+"""Turbo engine: device-resident streaming mapping rounds.
+
+Counterpart of ``sigmap_tpu/mapping/turbo.py`` (read its docstring for the
+algorithm and its documented divergences from the exact path).  Per read
+batch: host transport quantization, one upload, then event detection for
+all of the batch's chunks (``batch_features``: kernels B1 and B2).  Per
+lockstep round (``turbo_round``): seed windows, the sweep radius search
+(kernel B3), anchors in qpos-major [A, B] layout, fused chaining (kernel
+B4), candidacy gates, stop rules and best-so-far state, all on the device;
+the host reads one packed [B+2] array per round.  Reads that end unmapped
+after a capacity overflow are re-mapped by the host exact engine (rescue).
+
+Batches are mapped one after another on the caller's stream.  The tile
+store is built on the host (``SweepIndex.build_cached(materialize=True)``)
+and uploaded once.
+"""
+
+from __future__ import annotations
+
+import sys
+import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from sigmap_tpu.config import (
+    ChainingConfig, EventDetectorConfig, MappingConfig, SigmapConfig,
+)
+from sigmap_tpu.index.build import SignalIndex
+from sigmap_tpu.index.sweep import META_POS_BITS, SweepIndex
+from sigmap_tpu.io.paf import ChainsSummary, PAFRecord, streaming_tags
+from sigmap_tpu.io.signals import ReadSignal
+
+from ..ops.chain_fused import chain_fused
+from ..signal.events import batch_generate_features
+from .sweep_search import SEED_PAD, sweep_round
+
+NEG = -1.0e30
+
+
+@dataclass(frozen=True)
+class TurboParams:
+    """Shapes of the turbo round (the reference's operating point,
+    turbo.py:80-99).  The reference's ``nwave`` is absent: drain waves run
+    unconditionally never change a seed's slots, so it does not change
+    results."""
+
+    S: int = 256          # seed slots per read per chunk
+    K: int = 8            # match slots per seed (reference cap: 5000)
+    RING: int = 768       # chaining band / carry size
+    TILE: int = 1024      # sweep tile width
+    max_events: int = 1024
+    max_features: int = 1024
+    block: int = 32       # sweep seed block
+    # reads that finish unmapped with a capacity overflow (matches past K
+    # or seeds past S) are re-mapped through the exact host engine
+    rescue: bool = True
+
+
+@dataclass
+class TileStore:
+    """The sweep index on the device (index/sweep.py layout)."""
+
+    tiles: torch.Tensor    # [T, 8, TILE] f32 rotated coords
+    meta: torch.Tensor     # [T, 8, TILE//8] i32 (group << 25) | tpos
+    cum: torch.Tensor      # [prod(radixes)+1] i32 cumulative cell table
+    rot: torch.Tensor      # [dim, dim] f32
+    mu: torch.Tensor       # [dim] f32
+    origin: torch.Tensor   # [bd] f32
+    radixes: tuple
+    span: int
+    cell_width: float
+    tile: int
+
+
+def _put(a, dt, dev):
+    """numpy -> tensor on dev (copies only arrays that are not already
+    contiguous, writable and of type dt)."""
+    return torch.from_numpy(np.require(a, dt, ["C", "W"])).to(dev)
+
+
+def tile_store_from_sweep(sw: SweepIndex, device) -> TileStore:
+    """Host SweepIndex (built with materialize=True) -> device tensors."""
+    if sw.tiles is None:
+        raise ValueError("SweepIndex was built without materialized tiles")
+    dev = torch.device(device)
+
+    def put(a, dt):
+        return _put(a, dt, dev)
+
+    return TileStore(
+        tiles=put(sw.tiles, np.float32), meta=put(sw.meta, np.int32),
+        cum=put(sw.cum, np.int32), rot=put(sw.rot, np.float32),
+        mu=put(sw.mu, np.float32), origin=put(sw.origin, np.float32),
+        radixes=tuple(sw.radixes), span=sw.span, cell_width=sw.cell_width,
+        tile=sw.tile,
+    )
+
+
+@dataclass
+class RoundState:
+    """One batch's round state, all on the device."""
+
+    chunk_idx: torch.Tensor   # [B] i32
+    done: torch.Tensor        # [B] bool
+    stopped: torch.Tensor     # [B] bool (stop rule fired)
+    offsets: torch.Tensor     # [B] i32 accumulated feature counts
+    carry: tuple              # 8 x [RING, B]: t q g score stt stq n sumd
+    rb_f: torch.Tensor        # [4, B] f32 best so far: s1 s2 sumd1 s3
+    rb_i: torch.Tensor        # [8, B] i32: g1 tstart tend qstart qend n1
+                              #   nc ovf
+
+
+_CARRY_DTYPES = (np.int32, np.int32, np.int32, np.float32, np.int32,
+                 np.int32, np.int32, np.float32)
+
+
+def round_state_from_numpy(chunk_idx, done, stopped, offsets, carry, rb_f,
+                           rb_i, device) -> RoundState:
+    """The reference round's state as numpy arrays -> port tensors."""
+    dev = torch.device(device)
+
+    def put(a, dt):
+        return _put(a, dt, dev)
+
+    return RoundState(
+        chunk_idx=put(chunk_idx, np.int32), done=put(done, np.bool_),
+        stopped=put(stopped, np.bool_), offsets=put(offsets, np.int32),
+        carry=tuple(put(c, dt) for c, dt in zip(carry, _CARRY_DTYPES)),
+        rb_f=put(rb_f, np.float32), rb_i=put(rb_i, np.int32),
+    )
+
+
+def init_round_state(B: int, RING: int, device) -> RoundState:
+    z = np.zeros((RING, B), np.int32)
+    carry = (np.full((RING, B), -(1 << 30), np.int32), z,
+             np.full((RING, B), -2, np.int32),
+             np.full((RING, B), NEG, np.float32), z, z, z,
+             np.zeros((RING, B), np.float32))
+    return round_state_from_numpy(
+        np.zeros(B, np.int32), np.zeros(B, bool), np.zeros(B, bool),
+        np.zeros(B, np.int32), carry, np.full((4, B), NEG, np.float32),
+        np.zeros((8, B), np.int32), device,
+    )
+
+
+def build_seeds(feats, counts, offsets, S: int, step: int, dim: int,
+                min_feature_length: int):
+    """Feature rows -> (seeds [B, S, 8] f32 with SEED_PAD fill, qpos [B, S]
+    i32, has_f [B] bool, seed_ovf scalar bool)."""
+    B, F = feats.shape
+    dev = feats.device
+    has_f = counts > min_feature_length
+    n_all = torch.where(
+        has_f, torch.div(counts - dim, step, rounding_mode="floor"), 0)
+    n_seeds = torch.clamp(n_all, 0, S)
+    j = torch.arange(S, dtype=torch.int32, device=dev)
+    positions = (j + 1) * step
+    need = (S + 1) * step + 8
+    fp = torch.nn.functional.pad(feats, (0, need - F)) if need > F else feats
+    dmask = torch.arange(8, device=dev) < dim
+    wins = torch.stack(
+        [fp[:, step + c: step + c + step * S: step] for c in range(8)], dim=2
+    ) * dmask[None, None, :]
+    seed_ok = j[None, :] < n_seeds[:, None]
+    pad_row = torch.where(dmask, SEED_PAD, 0.0)
+    seeds = torch.where(seed_ok[:, :, None], wins, pad_row[None, None, :])
+    seed_ovf = (n_all > S).any()
+    qpos = positions[None, :] + offsets[:, None]
+    return seeds, qpos, has_f, seed_ovf
+
+
+def anchors_qpos_major(m_meta, m_d2, wrote, qpos, B: int, S: int, K: int):
+    """Sweep outputs -> chaining inputs in qpos-major [S*K, B] layout."""
+    m_meta = m_meta.reshape(B, S, K)
+    kk = torch.arange(K, device=m_meta.device)
+    a_valid = kk[None, None, :] < wrote.reshape(B, S)[:, :, None]
+    pos_mask = (1 << META_POS_BITS) - 1
+    n_t = (m_meta & pos_mask).reshape(B, S * K).t()
+    n_g = torch.where(a_valid, m_meta >> META_POS_BITS, -1)
+    n_g = n_g.reshape(B, S * K).t()
+    n_d = m_d2.reshape(B, S * K).t()
+    n_q = qpos[:, :, None].expand(B, S, K).reshape(B, S * K).t()
+    return n_t, n_q, n_d, n_g
+
+
+@dataclass
+class RoundAnchors:
+    """The first half of a round: seeds searched, anchors laid out for the
+    fused chainer (rows 0..RING-1 carried, then qpos-major seed slots)."""
+
+    active: torch.Tensor      # [B] bool
+    counts: torch.Tensor      # [B] i32 this round's feature counts
+    has_f: torch.Tensor       # [B] bool
+    seed_ovf: torch.Tensor    # scalar bool
+    cnt: torch.Tensor         # [B*S] i32 exact match totals
+    a_t: torch.Tensor         # [A, B] i32
+    a_q: torch.Tensor         # [A, B] i32
+    a_d: torch.Tensor         # [A, B] f32
+    a_g: torch.Tensor         # [A, B] i32
+
+
+def round_seeds(feats, counts_r, n_full, st: RoundState, p: TurboParams,
+                step: int, dim: int, m: MappingConfig):
+    """This round's active reads and their seed windows: (active [B],
+    counts [B] i32, seeds [B, S, 8], qpos [B, S], has_f [B], seed_ovf)."""
+    active = ~st.done & (st.chunk_idx < n_full) & (
+        st.chunk_idx < m.max_num_chunks)
+    counts = torch.where(active, counts_r, 0).to(torch.int32)
+    seeds, qpos, has_f, seed_ovf = build_seeds(
+        feats, counts, st.offsets, p.S, step, dim, m.min_feature_length
+    )
+    return active, counts, seeds, qpos, has_f, seed_ovf
+
+
+def round_anchors(store: TileStore, feats, counts_r, n_full, st: RoundState,
+                  p: TurboParams, step: int, radius: float, dim: int,
+                  m: MappingConfig) -> RoundAnchors:
+    """Seed windows, sweep search (B3) and the anchor layout of one round."""
+    B = feats.shape[0]
+    S, K, RING = p.S, p.K, p.RING
+    dev = feats.device
+    i32 = torch.int32
+    active, counts, seeds, qpos, has_f, seed_ovf = round_seeds(
+        feats, counts_r, n_full, st, p, step, dim, m)
+    m_meta, m_d2, cnt, wrote = sweep_round(
+        seeds.reshape(B * S, 8), store.cum, store.tiles, store.meta,
+        store.rot, store.mu, store.origin, radius=radius, K=K, TILE=p.TILE,
+        dim=dim, block=p.block, radixes=store.radixes, span=store.span,
+        cell_width=store.cell_width,
+    )
+    n_t, n_q, n_d, n_g = anchors_qpos_major(m_meta, m_d2, wrote, qpos,
+                                            B, S, K)
+    c_t, c_q, c_g = st.carry[:3]
+    return RoundAnchors(
+        active=active, counts=counts, has_f=has_f, seed_ovf=seed_ovf,
+        cnt=cnt,
+        a_t=torch.cat([c_t, n_t], dim=0).contiguous(),
+        a_q=torch.cat([c_q, n_q], dim=0).contiguous(),
+        a_d=torch.cat([torch.zeros((RING, B), dtype=torch.float32,
+                                   device=dev), n_d], dim=0).contiguous(),
+        a_g=torch.cat([torch.where(c_g == -2, -1, c_g), n_g],
+                      dim=0).to(i32).contiguous(),
+    )
+
+
+def turbo_round(store: TileStore, feats, counts_r, n_full, st: RoundState,
+                p: TurboParams, step: int, radius: float, dim: int,
+                chain_cfg: ChainingConfig, m: MappingConfig):
+    """One streaming round (turbo.py:159-293) on the device of ``feats``.
+
+    feats/counts_r are this round's chunk-feature slice ([B, F] / [B]).
+    Returns (new RoundState, counts [B] i32, host_sig [B+2] u8: done flags
+    then the match and seed overflow flags)."""
+    B = feats.shape[0]
+    S, K = p.S, p.K
+    i32 = torch.int32
+    ra = round_anchors(store, feats, counts_r, n_full, st, p, step, radius,
+                       dim, m)
+    active, counts, has_f, cnt = ra.active, ra.counts, ra.has_f, ra.cnt
+    match_ovf = (cnt > K).any()
+    c_score, c_stt, c_stq, c_n, c_sumd = st.carry[3:]
+    sum_f, sum_i, new_carry = chain_fused(
+        ra.a_t, ra.a_q, ra.a_d, ra.a_g, c_score.contiguous(),
+        c_stt.contiguous(), c_stq.contiguous(), c_n.contiguous(),
+        c_sumd.contiguous(), radius=radius, dim=dim, ring=p.RING,
+        cfg=chain_cfg, kb=K,
+    )
+    s1, s2_raw, s3_raw = sum_f[0], sum_f[1], sum_f[3]
+    n1 = sum_i[5]
+    # chain candidacy gates of the reference's selection pipeline
+    # (spatial_index.cc:230-247,545-546), as in turbo.py
+    min_sc = float(np.float32(chain_cfg.min_chaining_score))
+    found = active & has_f & (s1 >= min_sc)
+    has2 = found & (s2_raw >= min_sc) & (2.0 * s2_raw > s1)
+    has3 = has2 & (s3_raw >= min_sc) & (2.0 * s3_raw > s1)
+    s2 = torch.where(has2, s2_raw, 0.0)
+    s3 = torch.where(has3, s3_raw, 0.0)
+    nc = 1 + has2.to(i32) + has3.to(i32)
+
+    # stop rules (sigmap.cc:667-688)
+    sm = (s1 + s2 + s3) / nc.to(torch.float32)
+    stop = (
+        (has2 & (s1 / torch.clamp(s2, min=1e-30) >= m.stop_mapping_ratio))
+        | (has2 & (s1 >= m.stop_mapping_mean_ratio * sm))
+        | (found & ~has2 & (n1 >= m.stop_mapping_min_num_anchors))
+    )
+
+    upd = found & (s1 > st.rb_f[0])
+    rb_f = torch.where(upd[None, :], sum_f[:4], st.rb_f)
+    rb_i_new = torch.cat([sum_i[:6], nc[None, :], st.rb_i[7:8]], dim=0)
+    rb_i = torch.where(upd[None, :], rb_i_new, st.rb_i)
+    # row 7 accumulates per-read capacity overflow (rescue routing)
+    ovf_read = active & (
+        (cnt.reshape(B, S) > K).any(dim=1)
+        | (torch.where(has_f, torch.div(counts - dim, step,
+                                        rounding_mode="floor"), 0) > S)
+    )
+    rb_i = torch.cat([rb_i[:7], (rb_i[7] | ovf_read.to(i32))[None, :]], dim=0)
+
+    new_offsets = st.offsets + torch.where(active & has_f, counts, 0)
+    exhausted = active & ((st.chunk_idx + 1 >= n_full)
+                          | (st.chunk_idx + 1 >= m.max_num_chunks))
+    new_done = st.done | ~active | stop | exhausted
+    # the reference's stop `break` precedes the loop increment: a stopped
+    # read's chunk index stays at the stopping chunk (sigmap.cc:647-689)
+    new_chunk_idx = st.chunk_idx + (active & ~stop).to(i32)
+    ovf = torch.stack([match_ovf, ra.seed_ovf])
+    host_sig = torch.cat([new_done.to(torch.uint8), ovf.to(torch.uint8)])
+    new = RoundState(
+        chunk_idx=new_chunk_idx.to(i32), done=new_done,
+        stopped=st.stopped | stop, offsets=new_offsets.to(i32),
+        carry=new_carry, rb_f=rb_f, rb_i=rb_i.to(i32),
+    )
+    return new, counts, host_sig
+
+
+def chunk_rows(q, qoff, qscale, n_full):
+    """Quantized chunks -> event-detector rows.
+
+    q [B, NC, Cs] i32 quantized samples, qoff/qscale [B] f32, n_full [B]
+    i32.  pa = (q + qoff) * qscale reproduces io.signals.dac_to_pa bit for
+    bit for DAC-derived reads.  Chunks past a read's n_full get length 0.
+    Returns (pa [B*NC, Cs] f32, clen [B*NC] i32)."""
+    B, NC, Cs = q.shape
+    rows = B * NC
+    chunk_ok = torch.arange(NC, device=q.device)[None, :] < n_full[:, None]
+    clen = torch.where(chunk_ok, Cs, 0).to(torch.int32).reshape(rows)
+    pa = ((q.reshape(rows, Cs).to(torch.float32)
+           + qoff.repeat_interleave(NC)[:, None])
+          * qscale.repeat_interleave(NC)[:, None])
+    return pa, clen
+
+
+def batch_features(q, qoff, qscale, n_full, p: TurboParams,
+                   ed_cfg: EventDetectorConfig, compress_delta: float):
+    """Event-detect and compress all of a batch's chunks in one pass
+    (inputs as ``chunk_rows``).  Returns (feats [B, NC, F] f32, counts
+    [B, NC] i32)."""
+    B, NC, _ = q.shape
+    pa, clen = chunk_rows(q, qoff, qscale, n_full)
+    feats, counts = batch_generate_features(
+        pa, clen, cfg=ed_cfg, max_events=p.max_events,
+        max_features=p.max_features, compress_delta=compress_delta,
+    )
+    F = feats.shape[-1]
+    return feats.reshape(B, NC, F), counts.reshape(B, NC)
+
+
+def quantize_batch(batch, B, NC, Cs, max_chunks, threads: int = 1):
+    """Host-side transport quantization: pA f32 -> uint16 + per-read affine
+    (turbo.py:440-473, copied: host code)."""
+    n_full = np.zeros(B, np.int32)
+    q = np.zeros((B, NC, Cs), np.uint16)
+    qoff = np.zeros(B, np.float32)
+    qscale = np.ones(B, np.float32)
+    if threads > 1 and len(batch) > 1:
+        def work(lo_hi):
+            lo, hi = lo_hi
+            for j in range(lo, hi):
+                _quantize_one(batch[j], j, q, qoff, qscale, n_full, NC, Cs,
+                              max_chunks)
+
+        n = len(batch)
+        step = -(-n // threads)
+        spans = [(lo, min(lo + step, n)) for lo in range(0, n, step)]
+        with ThreadPoolExecutor(threads) as ex:
+            list(ex.map(work, spans))
+        return q, qoff, qscale, n_full
+    for i, s in enumerate(batch):
+        _quantize_one(s, i, q, qoff, qscale, n_full, NC, Cs, max_chunks)
+    return q, qoff, qscale, n_full
+
+
+def _quantize_one(s, i, q, qoff, qscale, n_full, NC, Cs, max_chunks):
+    n_full[i] = min(s.length // Cs, max_chunks)
+    L = min(s.length, NC * Cs)
+    pa = s.pa[:L].astype(np.float32)
+    ku = None
+    scale = np.float32(s.range / s.digitisation) if s.digitisation else 0
+    off = np.float32(s.offset)
+    if scale > 0 and L:
+        k = np.rint(pa / scale - off)
+        if 0 <= k.min(initial=0) and k.max(initial=0) <= 65535:
+            cand = k.astype(np.uint16)
+            if np.array_equal(
+                (cand.astype(np.float32) + off) * scale, pa
+            ):
+                ku = cand
+    if ku is None and L:
+        lo = np.float32(pa.min())
+        hi = np.float32(pa.max())
+        scale = np.float32(max(hi - lo, 1e-6) / 65000.0)
+        off = np.float32(lo / scale)
+        ku = np.clip(np.rint(pa / scale - off), 0, 65535).astype(
+            np.uint16
+        )
+    if L:
+        q[i].reshape(-1)[:L] = ku
+    qoff[i] = off
+    qscale[i] = scale
+    return q, qoff, qscale, n_full
+
+
+# Chunk-count buckets of the reference mapper (turbo.py:715).  Kept because
+# the fallback quantization's min/max window depends on NC.
+_NC_BUCKETS = (1, 2, 3, 4, 6, 8, 12, 16, 24, 30)
+
+
+class TurboMapper:
+    """Streaming mapper driving turbo_round over device-resident batches of
+    ``runtime.read_batch`` reads on an explicit ``device``."""
+
+    def __init__(self, index: SignalIndex,
+                 config: SigmapConfig = SigmapConfig(),
+                 params: TurboParams | None = None, *, device):
+        self.device = torch.device(device)
+        self.index = index
+        self.cfg = config
+        if index.win_group is None:
+            index.derive_window_metadata()
+        self.p = params if params is not None else TurboParams()
+        sw = SweepIndex.build_cached(
+            index, config.mapping.search_radius, tile=self.p.TILE,
+            cache_dir=config.runtime.sweep_cache_dir, materialize=True,
+        )
+        self.store = tile_store_from_sweep(sw, self.device)
+        self._oracle = None
+        self._oracle_lock = threading.Lock()
+        self._oracle_kicked = False
+        self._rescue_pool = (
+            ThreadPoolExecutor(max(1, config.runtime.num_threads))
+            if self.p.rescue else None
+        )
+        self._rescue_futs: list = []
+        self._ovf_warned = False
+        self.n_rescued = 0          # reads re-mapped by the exact engine
+        self.n_rescued_mapped = 0
+
+    def _get_oracle(self):
+        with self._oracle_lock:
+            if self._oracle is None:
+                from ..oracle import Oracle
+
+                self._oracle = Oracle(self.index, self.cfg)
+        return self._oracle
+
+    def _rescue_one(self, rid: int, s: ReadSignal, turbo_mt: float):
+        from .records import streaming_record
+
+        t0 = time.perf_counter()
+        oracle = self._get_oracle()
+        chunk_idx_adj, num_events, chains, _stopped = oracle.streaming_read(
+            s.pa
+        )
+        mt = turbo_mt + (time.perf_counter() - t0) * 1000
+        return rid, streaming_record(
+            self.index, self.cfg, rid, s.read_id, s.length, chunk_idx_adj,
+            num_events, chains, mt,
+        )
+
+    def close(self):
+        if self._rescue_pool is not None:
+            self._rescue_pool.shutdown(wait=True)
+
+    def streaming_map(self, signals: list[ReadSignal]) -> list[PAFRecord]:
+        records: dict[int, PAFRecord] = {}
+        B = self.cfg.runtime.read_batch
+        for base in range(0, len(signals), B):
+            self._map_batch(signals[base: base + B], base, records)
+        return self._drain_rescues(records, len(signals))
+
+    def _drain_rescues(self, records: dict, n: int) -> list[PAFRecord]:
+        if self._rescue_futs:
+            n_remap = 0
+            for fut in self._rescue_futs:
+                rid, rec = fut.result()
+                if rec.is_mapped:
+                    n_remap += 1
+                records[rid] = rec
+            self.n_rescued += len(self._rescue_futs)
+            self.n_rescued_mapped += n_remap
+            print(
+                f"turbo: {len(self._rescue_futs)} capacity-overflow reads "
+                f"re-mapped through the exact engine ({n_remap} mapped)",
+                file=sys.stderr,
+            )
+            self._rescue_futs = []
+        return [records[i] for i in range(n) if i in records]
+
+    def upload_batch(self, batch: list[ReadSignal]):
+        """Quantize one batch on the host and upload it: (q [B, NC, Cs] i32,
+        qoff [B] f32, qscale [B] f32, n_full [B] i32) on the device, and
+        n_full on the host."""
+        m = self.cfg.mapping
+        B = self.cfg.runtime.read_batch
+        Cs = m.chunk_size
+        nc_raw = max(1, max((min(s.length // Cs, m.max_num_chunks)
+                             for s in batch), default=1))
+        NC = next((nc for nc in _NC_BUCKETS
+                   if nc >= nc_raw or nc >= m.max_num_chunks),
+                  _NC_BUCKETS[-1])
+        q, qoff, qscale, n_full = quantize_batch(
+            batch, B, NC, Cs, m.max_num_chunks,
+            threads=self.cfg.runtime.num_threads,
+        )
+        dev = self.device
+        # uint16 travels as its int16 bit pattern and is widened on device
+        qd = torch.from_numpy(q.view(np.int16)).to(dev).to(torch.int32) \
+            & 0xFFFF
+        return (qd, torch.from_numpy(qoff).to(dev),
+                torch.from_numpy(qscale).to(dev),
+                torch.from_numpy(n_full).to(dev), n_full)
+
+    def _map_batch(self, batch: list[ReadSignal], base: int, records: dict):
+        m = self.cfg.mapping
+        B = self.cfg.runtime.read_batch
+        qd, qoff, qscale, n_full_d, n_full = self.upload_batch(batch)
+        feats_all, counts_all = batch_features(
+            qd, qoff, qscale, n_full_d, self.p, self.cfg.event,
+            m.compress_delta,
+        )
+        st = init_round_state(B, self.p.RING, self.device)
+        mt = np.zeros(B)
+        prev_done = n_full == 0
+        done_h = prev_done.copy()
+        rounds = 0
+        while not done_h.all():
+            t0 = time.perf_counter()
+            st, _counts, host_sig = turbo_round(
+                self.store, feats_all[:, rounds], counts_all[:, rounds],
+                n_full_d, st, self.p, m.step_size, m.search_radius,
+                self.index.dim, self.cfg.chain, m,
+            )
+            h = host_sig.cpu().numpy()        # the round's one device read
+            done_h, ovf_h = h[:B].astype(bool), h[B:].astype(bool)
+            if ovf_h.any():
+                if self._rescue_pool is not None and not self._oracle_kicked:
+                    # start building the rescue oracle so it overlaps rounds
+                    self._oracle_kicked = True
+                    self._rescue_pool.submit(self._get_oracle)
+                elif self._rescue_pool is None and not self._ovf_warned:
+                    print(
+                        "warning: turbo capacity overflow with rescue "
+                        f"DISABLED [match={bool(ovf_h[0])} "
+                        f"seeds={bool(ovf_h[1])}]; raise TurboParams.K / "
+                        "TurboParams.S or anchors are dropped",
+                        file=sys.stderr,
+                    )
+                    self._ovf_warned = True
+            round_ms = (time.perf_counter() - t0) * 1000
+            act = ~prev_done
+            mt[act] += round_ms / max(1, int(act.sum()))
+            prev_done = done_h
+            rounds += 1
+        rb_f = st.rb_f.cpu().numpy()
+        rb_i = st.rb_i.cpu().numpy()
+        chunk_idx = st.chunk_idx.cpu().numpy()
+        stopped = st.stopped.cpu().numpy()
+        offsets = st.offsets.cpu().numpy()
+        for i, s in enumerate(batch):
+            self._emit(
+                records, base + i, s, rb_f[:, i], rb_i[:, i],
+                int(chunk_idx[i]), bool(stopped[i]), int(offsets[i]),
+                float(mt[i]), int(n_full[i]),
+            )
+
+    def _emit(self, records, rid, s: ReadSignal, sf, si, chunk_idx,
+              stopped_early, num_events, mt_ms, num_chunks):
+        """Output decision + PAF record (sigmap.cc:690-866 semantics;
+        turbo.py:870-942, copied: host code)."""
+        m = self.cfg.mapping
+        if chunk_idx > 0 and not stopped_early:
+            # loop-exhaustion adjustment (sigmap.cc:690-693)
+            if chunk_idx == num_chunks or chunk_idx == m.max_num_chunks:
+                chunk_idx -= 1
+        ci = chunk_idx + 1
+        sl = s.length
+        s1, s2_raw, sumd1, s3_raw = (float(x) for x in sf[:4])
+        g1, t_start, t_end, q_start, q_end, n1, nc, ovf = (
+            int(x) for x in si
+        )
+        min_sc = self.cfg.chain.min_chaining_score
+        found = s1 >= min_sc
+        has2 = found and s2_raw >= min_sc and 2.0 * s2_raw > s1
+        has3 = has2 and s3_raw >= min_sc and 2.0 * s3_raw > s1
+        s2 = s2_raw if has2 else 0.0
+        s3 = s3_raw if has3 else 0.0
+        nc = 1 + int(has2) + int(has3) if found else 0
+        sm = (s1 + s2 + s3) / nc if nc else 0.0
+        scale = 0.0
+        if num_events > 0:
+            scale = (ci * m.chunk_size / num_events) / (
+                m.sample_rate / m.bp_per_sec
+            )
+        out_ok = found and (
+            (has2 and (
+                s1 / s2 >= m.output_mapping_ratio
+                or s1 >= m.output_mapping_mean_ratio * sm
+            ))
+            or (nc == 1 and n1 >= m.output_mapping_min_num_anchors)
+        )
+        summ = None
+        if found:
+            summ = ChainsSummary(
+                num_anchors=n1, num_chains=nc, s1=s1, s2=s2, sm=sm,
+                ad=sumd1 / max(1, n1),
+                at=(t_end - t_start) / max(1, n1),
+                aq=(q_end - q_start) / max(1, n1),
+            )
+        if out_ok:
+            ref_index = g1 // 2
+            strand_bit = g1 % 2
+            ref_len = self.index.ref_lengths[ref_index]
+            tstart = t_start if strand_bit == 0 else ref_len + 1 - t_end
+            mapq = 60 if nc == 1 else max(0, min(60, int(40 * (1 - s2 / s1))))
+            records[rid] = PAFRecord(
+                read_id=rid, read_name=s.read_id, read_length=sl,
+                read_start=int(scale * q_start), read_end=int(scale * q_end),
+                ref_index=ref_index, fragment_start=int(tstart),
+                fragment_length=int(t_end - t_start + 1),
+                mapq=mapq, direction=1 if strand_bit == 0 else 0,
+                tags=streaming_tags(mt_ms, ci, sl, summ),
+            )
+        else:
+            records[rid] = PAFRecord(
+                read_id=rid, read_name=s.read_id, read_length=sl,
+                read_start=0, read_end=0, ref_index=0, fragment_start=0,
+                fragment_length=0, mapq=61, direction=0,
+                tags=streaming_tags(mt_ms, ci, sl, summ),
+            )
+            if ovf and self._rescue_pool is not None:
+                # unmapped and capacity-truncated: the exact engine decides
+                self._rescue_futs.append(
+                    self._rescue_pool.submit(self._rescue_one, rid, s, mt_ms)
+                )

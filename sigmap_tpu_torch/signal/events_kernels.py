@@ -1,0 +1,142 @@
+"""Kernels B1 (peak state machine) and B2 (compression keep mask).
+
+CUDA sources: ``sigmap_tpu_torch/csrc/events.cu``.  They replace
+``sigmap_tpu/signal/events_pallas.py:_peaks_kernel`` (via
+``detect_peaks_pallas``) and ``_compress_kernel`` (via
+``compress_keep_pallas``).
+
+Each wrapper runs the plain PyTorch version on a CPU tensor and launches the
+kernel on a CUDA tensor; nothing else is accepted.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from sigmap_tpu.config import EventDetectorConfig
+
+from .._build import LAUNCHES, check, kernels
+
+FLT_MAX = 3.4028234663852886e38  # float32 max, exactly representable
+
+
+def _det_step(v, i, pp, pv, valid, masked, thr, wl, ph, active):
+    """One step of one detector (events.py:_detector_step, event.h:127-179)."""
+    act = active & (masked < i)
+    in_def = pp == -1
+    lower = v < pv
+    fire = ~lower & ((v - pv) > ph)
+    pp1 = torch.where(fire, i, pp)
+    pv1 = torch.where(lower | fire, v, pv)
+    upd = v > pv
+    pp2 = torch.where(upd, i, pp)
+    pv2 = torch.where(upd, v, pv)
+    valid2 = valid | (((pv2 - v) > ph) & (pv2 > thr))
+    emit = valid2 & ((i - pp2) > (wl // 2))
+    new_pp = torch.where(act, torch.where(in_def, pp1,
+                                          torch.where(emit, -1, pp2)), pp)
+    new_pv = torch.where(act, torch.where(in_def, pv1,
+                                          torch.where(emit, v, pv2)), pv)
+    new_valid = torch.where(act, torch.where(in_def, valid, valid2 & ~emit),
+                            valid)
+    emit_pos = torch.where(act & ~in_def & emit, pp2 + 1, 0)
+    dominate = act & ~in_def & (pv2 > thr)
+    return new_pp, new_pv, new_valid, emit_pos, dominate, pp2
+
+
+def detect_peaks_plain(tstat1, tstat2, lengths, cfg: EventDetectorConfig):
+    """Plain version of B1: a loop over the C steps, vectorised over rows.
+    Returns emissions [R, 2C] i32 (position + 1, or 0), interleaved
+    (short, long) per step."""
+    R, C = tstat1.shape
+    dev = tstat1.device
+    lengths = lengths.to(torch.int32)
+    ph = float(cfg.peak_height)
+    th1, th2 = float(cfg.threshold1), float(cfg.threshold2)
+    w1, w2 = cfg.window_length1, cfg.window_length2
+    m1 = torch.full((R,), -1, dtype=torch.int32, device=dev)
+    s = [m1, torch.full((R,), FLT_MAX, dtype=torch.float32, device=dev),
+         torch.zeros(R, dtype=torch.bool, device=dev),
+         torch.zeros(R, dtype=torch.int32, device=dev)]
+    lg = [t.clone() for t in s]
+    out = torch.zeros((C, R, 2), dtype=torch.int32, device=dev)
+    for i in range(C):
+        active = i < lengths
+        pp, pv, valid, emit_s, dominate, s_pp2 = _det_step(
+            tstat1[:, i], i, s[0], s[1], s[2], s[3], th1, w1, ph, active)
+        s = [pp, pv, valid, s[3]]
+        l_pp = torch.where(dominate, -1, lg[0])
+        l_pv = torch.where(dominate, FLT_MAX, lg[1])
+        l_valid = lg[2] & ~dominate
+        l_mask = torch.where(dominate, s_pp2 + w1, lg[3])
+        pp, pv, valid, emit_l, _, _ = _det_step(
+            tstat2[:, i], i, l_pp, l_pv, l_valid, l_mask, th2, w2, ph, active)
+        lg = [pp, pv, valid, l_mask]
+        out[i, :, 0] = emit_s
+        out[i, :, 1] = emit_l
+    return out.permute(1, 0, 2).reshape(R, 2 * C)
+
+
+def detect_peaks(tstat1, tstat2, lengths, cfg: EventDetectorConfig):
+    """B1 wrapper: [R, C] f32 t-stats + [R] lengths -> [R, 2C] i32."""
+    dev = tstat1.device
+    if dev.type == "cpu":
+        return detect_peaks_plain(tstat1, tstat2, lengths, cfg)
+    if dev.type != "cuda":
+        raise ValueError(f"detect_peaks: unsupported device {dev}")
+    R, C = tstat1.shape
+    if tstat2.shape != (R, C) or lengths.shape != (R,):
+        raise ValueError("detect_peaks: shape mismatch")
+    t1 = tstat1.to(torch.float32).t().contiguous()    # [C, R]
+    t2 = tstat2.to(torch.float32).t().contiguous()
+    lens = lengths.to(torch.int32).contiguous()
+    out = torch.empty((C, R, 2), dtype=torch.int32, device=dev)
+    lib = kernels()
+    err = lib.sig_peaks_launch(
+        t1.data_ptr(), t2.data_ptr(), lens.data_ptr(), R, C,
+        cfg.window_length1, cfg.window_length2, float(cfg.threshold1),
+        float(cfg.threshold2), float(cfg.peak_height), out.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    check(err, "peaks")
+    LAUNCHES["peaks"] += 1
+    return out.permute(1, 0, 2).reshape(R, 2 * C)
+
+
+def compress_keep_plain(norm, n, delta: float):
+    """Plain version of B2 (sigmap.cc:1072-1079): keep j == 0 or any value
+    whose |difference| from the last kept value exceeds delta, for j < n.
+    Returns [R, E] i32."""
+    R, E = norm.shape
+    n = n.to(torch.int32)
+    last = torch.zeros(R, dtype=torch.float32, device=norm.device)
+    keep = torch.zeros((R, E), dtype=torch.int32, device=norm.device)
+    for j in range(E):
+        v = norm[:, j]
+        k = (j < n) & ((j == 0) | (torch.abs(v - last) > delta))
+        keep[:, j] = k.to(torch.int32)
+        last = torch.where(k, v, last)
+    return keep
+
+
+def compress_keep(norm, n, delta: float):
+    """B2 wrapper: [R, E] f32 z-scored means + [R] counts -> [R, E] i32."""
+    dev = norm.device
+    if dev.type == "cpu":
+        return compress_keep_plain(norm, n, delta)
+    if dev.type != "cuda":
+        raise ValueError(f"compress_keep: unsupported device {dev}")
+    R, E = norm.shape
+    if n.shape != (R,):
+        raise ValueError("compress_keep: shape mismatch")
+    nt = norm.to(torch.float32).t().contiguous()      # [E, R]
+    nn = n.to(torch.int32).contiguous()
+    keep = torch.empty((E, R), dtype=torch.int32, device=dev)
+    lib = kernels()
+    err = lib.sig_compress_keep_launch(
+        nt.data_ptr(), nn.data_ptr(), R, E, float(delta), keep.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    check(err, "compress_keep")
+    LAUNCHES["compress_keep"] += 1
+    return keep.t()

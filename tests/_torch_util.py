@@ -1,0 +1,50 @@
+"""Shared helpers of the tests/test_torch_*.py files."""
+
+import dataclasses
+
+import pytest
+import torch
+
+from sigmap_tpu.config import SigmapConfig
+from sigmap_tpu.index.build import build_index
+from sigmap_tpu.io.fasta import ReferenceSequence
+from sigmap_tpu.io.pore_model import make_synthetic_pore_model
+from sigmap_tpu.io.signals import ReadSignal, dac_to_pa
+from sigmap_tpu.synth import random_genome, simulate_reads
+
+# the suite runs several workers side by side: keep each one's intra-op
+# thread pool small so they do not oversubscribe the cores
+torch.set_num_threads(2)
+
+# the turbo shapes of tests/test_turbo.py
+PARAMS = dict(S=256, K=16, RING=64, TILE=256)
+
+
+@pytest.fixture
+def cuda_device():
+    """The first CUDA device; the test is skipped where there is none (the
+    decision is taken when the test runs, never at import)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.fixture(scope="module")
+def workload():
+    """tests/test_turbo.py:17-31: 200 kb genome, 100 reads of 2000 bases,
+    read batch 32."""
+    cfg = SigmapConfig()
+    pore = make_synthetic_pore_model(k=6, seed=0)
+    genome = random_genome(200_000, seed=11)
+    seqs = [ReferenceSequence(n, c) for n, c in genome]
+    idx = build_index(seqs, pore, cfg.index, cfg.mapping.search_radius,
+                      verbose=False)
+    reads = simulate_reads(pore, genome, 100, seed=5, read_bases=2000)
+    signals = [
+        ReadSignal(r.read_id, r.digitisation, r.range, r.offset,
+                   dac_to_pa(r.raw, r.digitisation, r.range, r.offset))
+        for r in reads
+    ]
+    cfg = dataclasses.replace(
+        cfg, runtime=dataclasses.replace(cfg.runtime, read_batch=32))
+    return cfg, idx, reads, signals

@@ -1,0 +1,141 @@
+"""Port of the event-detection path (kernels B1/B2's plain versions and the
+tensor code around them) vs sigmap_tpu.signal.
+
+B1 and B2 are compared exactly on identical inputs (the t-statistics or
+z-scored means computed once by the JAX package and fed to both).  The
+whole feature path is compared with a bound: XLA's CPU backend contracts
+the variance and z-score accumulations into fused multiply-adds and sums
+and prefix-sums rows in its own order, while the port rounds each f32
+operation separately (as the TPU does); the measured difference on these
+inputs is a few f32 ulps of the z-scored features, and counts match on
+every row.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from sigmap_tpu.config import EventDetectorConfig
+from sigmap_tpu.signal import events as jev
+from sigmap_tpu.signal.events_pallas import (
+    compress_keep_pallas, detect_peaks_pallas,
+)
+from sigmap_tpu_torch.signal import events as tev
+from sigmap_tpu_torch.signal import events_kernels as tk
+from _torch_util import cuda_device  # noqa: F401 - fixture
+
+TSTAT_RTOL = 1e-5       # |port - jax| / (|jax| + 1) for the t-statistics
+FEAT_ATOL = 1e-5        # features are z-scores of order 1
+
+
+def _kernels_case(seed=42):
+    """tests/test_kernels.py:13 inputs."""
+    rng = np.random.default_rng(seed)
+    B, C = 6, 1200
+    sigs = rng.normal(80, 8, (B, C)).astype(np.float32)
+    for b in range(B):
+        for s in range(0, C, 9):
+            sigs[b, s: s + 9] += rng.normal(0, 6)
+    return sigs, np.array([C, C - 100, 500, C, 50, 7], np.int32)
+
+
+def _events_case(seed=42):
+    """tests/test_events.py:146 inputs."""
+    rng = np.random.default_rng(seed)
+    B, C = 5, 1500
+    sigs = rng.normal(85, 10, (B, C)).astype(np.float32)
+    for b in range(B):
+        for s in range(0, C, 11):
+            sigs[b, s: s + 11] += rng.normal(0, 7)
+    return sigs, np.array([C, C - 137, 600, 51, 0], np.int32)
+
+
+CASES = {"kernels": _kernels_case, "events": _events_case}
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_peaks_plain_matches_pallas_and_scan(case):
+    sigs, lengths = CASES[case]()
+    cfg = EventDetectorConfig()
+    t1 = np.asarray(jev.batch_tstat(sigs, lengths, cfg.window_length1))
+    t2 = np.asarray(jev.batch_tstat(sigs, lengths, cfg.window_length2))
+    scan = np.asarray(
+        jev.detect_peaks_batch(t1, t2, jnp.asarray(lengths), cfg))
+    pal = np.asarray(detect_peaks_pallas(t1, t2, jnp.asarray(lengths), cfg,
+                                         interpret=True))
+    port = tk.detect_peaks(torch.from_numpy(t1), torch.from_numpy(t2),
+                           torch.from_numpy(lengths), cfg).numpy()
+    assert port.shape == scan.shape and port.dtype == np.int32
+    np.testing.assert_array_equal(port, scan)
+    np.testing.assert_array_equal(port, pal)
+    assert port.any(), "inputs produced no peaks"
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_compress_keep_plain_matches_pallas(case):
+    sigs, lengths = CASES[case]()
+    cfg = EventDetectorConfig()
+    t1 = jev.batch_tstat(sigs, lengths, cfg.window_length1)
+    t2 = jev.batch_tstat(sigs, lengths, cfg.window_length2)
+    emits = jev.detect_peaks_batch(t1, t2, jnp.asarray(lengths), cfg)
+    peaks1, n_peaks = jev.compact_nonzero(emits, 1024)
+    means, num_events = jev.events_means_batch(peaks1 - 1, n_peaks, sigs,
+                                               jnp.asarray(lengths), 1024)
+    norm = np.asarray(jev.zscore_masked(means, num_events))
+    ne = np.asarray(num_events)
+    pal = np.asarray(compress_keep_pallas(norm, ne, 0.1, interpret=True))
+    port = tk.compress_keep(torch.from_numpy(norm), torch.from_numpy(ne),
+                            0.1).numpy()
+    np.testing.assert_array_equal(port, pal)
+    assert port.sum() > len(ne)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+@pytest.mark.parametrize("w", [3, 6])
+def test_batch_tstat_matches(case, w):
+    sigs, lengths = CASES[case]()
+    want = np.asarray(jev.batch_tstat(sigs, lengths, w))
+    got = tev.batch_tstat(torch.from_numpy(sigs), torch.from_numpy(lengths),
+                          w).numpy()
+    np.testing.assert_array_equal(got == 0, want == 0)
+    np.testing.assert_allclose(got, want, rtol=TSTAT_RTOL, atol=TSTAT_RTOL)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_batch_generate_features_matches(case):
+    sigs, lengths = CASES[case]()
+    fj, cj = jev.batch_generate_features(sigs, lengths)
+    fp, cp = tev.batch_generate_features(torch.from_numpy(sigs),
+                                         torch.from_numpy(lengths))
+    np.testing.assert_array_equal(cp.numpy(), np.asarray(cj))
+    np.testing.assert_allclose(fp.numpy(), np.asarray(fj), atol=FEAT_ATOL,
+                               rtol=0)
+
+
+def test_compact_nonzero_matches():
+    rng = np.random.default_rng(1)
+    v = np.where(rng.random((7, 300)) < 0.1,
+                 rng.integers(1, 999, (7, 300)), 0).astype(np.int32)
+    for cap in (8, 64, 400):
+        pj, nj = jev.compact_nonzero(jnp.asarray(v), cap)
+        pp, npp = tev.compact_nonzero(torch.from_numpy(v), cap)
+        np.testing.assert_array_equal(pp.numpy(), np.asarray(pj))
+        np.testing.assert_array_equal(npp.numpy(), np.asarray(nj))
+
+
+@pytest.mark.gpu
+def test_event_kernels_match_plain_on_gpu(cuda_device):
+    sigs, lengths = _kernels_case()
+    cfg = EventDetectorConfig()
+    x = torch.from_numpy(sigs).to(cuda_device)
+    n = torch.from_numpy(lengths).to(cuda_device)
+    t1 = tev.batch_tstat(x, n, cfg.window_length1)
+    t2 = tev.batch_tstat(x, n, cfg.window_length2)
+    assert torch.equal(tk.detect_peaks(t1, t2, n, cfg),
+                       tk.detect_peaks_plain(t1, t2, n, cfg))
+    norm = torch.randn(64, 1024, device=cuda_device)
+    cnt = torch.randint(0, 1024, (64,), device=cuda_device, dtype=torch.int32)
+    assert torch.equal(tk.compress_keep(norm, cnt, 0.1).contiguous(),
+                       tk.compress_keep_plain(norm, cnt, 0.1))
