@@ -6,16 +6,26 @@
 1. prints the versions, fails when no CUDA device is visible, then prints
    the card (nvidia-smi name and power limit);
 2. builds the CUDA kernels (csrc/) and the native core from the checkout;
-3. compares each kernel with its plain PyTorch version on the card, exactly,
-   on the inputs the main path's own functions produce for the first batch
-   of the workload below, and times both with CUDA events (median after
-   warm-up);
+3. compares each turbo kernel (B1-B4) with its plain PyTorch version on the
+   card, exactly, on the inputs the main path's own functions produce for
+   the first batch of the workload below, and times both with CUDA events
+   (median after warm-up);
 4. drives the main path through the CLI (``-i`` then ``-m``) on a synthetic
    genome with BLOW5 (zlib) reads, scores the PAF against the simulation
    truth, and checks that every kernel of the path was launched;
 5. maps the reads again with the rescue oracle built (warm): reads/s, and
    under torch.profiler the device's busy time (union of its kernel, memcpy
-   and memset intervals) and idle share.
+   and memset intervals) and idle share;
+6. the debug modes and B5: B5 == plain at bench.py's DTW shape and on the
+   debug path's own full-width inputs (a 48,502-base reference, 64 reads of
+   3000 bases), then ``--debug-mode dtw-align`` and ``cwt-align`` through
+   the CLI (one line per pair, B5 launched), then the ``events-to-text``
+   and ``fast5-to-text`` dumps of the same reads;
+7. the exact engine through the CLI on phase 4's index: ``--engine exact``
+   on the first EXACT_READS reads and ``--batch-mode`` on the first
+   BATCH_MODE_READS, each scored like phase 4; B1/B2 == plain first on
+   each path's own rows (the streaming wavefront's first chunks, batch
+   mode's whole reads).
 
 A line before the last is the per-kernel JSON record, the last line
 ``{"ok": true, "device": {...}}``.  Any failure raises (non-zero exit, no
@@ -25,8 +35,11 @@ result line).
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -37,6 +50,15 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 READ_BASES = 3000     # read length of the round-5 workload
 SEED = 1              # genome seed; reads use SEED + 1
 SWEEP_BLOCKS = 256    # seed blocks of a full round checked against plain B3
+DEBUG_GENOME = 48_502  # bases of the debug modes' reference (lambda phage)
+DEBUG_READS = 64       # reads of the debug modes, whole against the reference
+DTW_SHAPE = (1024, 2048, 512)   # bench.py:bench_dtw's B, T, Q
+# phase 7's read subsets of the phase-4 reads, cut for the time limit: the
+# exact engine streams chunks on the host's chaining; batch mode seeds
+# whole reads at step 1 (~8x the seeds of a streaming chunk pass)
+EXACT_READS = 512
+BATCH_MODE_READS = 128
+EXACT_READ_BATCH = 512   # --read-batch of phase 7: one wavefront of reads
 
 KERNELS = {
     "peaks": ("sigmap_tpu_torch/csrc/events.cu",
@@ -47,6 +69,8 @@ KERNELS = {
               "sigmap_tpu/ops/sweep_kernel.py:44"),
     "chain_fused": ("sigmap_tpu_torch/csrc/chain_fused.cu",
                     "sigmap_tpu/ops/chain_fused.py:48"),
+    "sdtw": ("sigmap_tpu_torch/csrc/sdtw.cu",
+             "sigmap_tpu/ops/sdtw_kernel.py:47"),
 }
 
 # chrome-trace categories of work on the device
@@ -88,33 +112,38 @@ def max_abs_err(pairs):
     return err
 
 
-def check(records, name, shape, got, kernel, plain, plain_reps=2):
-    """Kernel outputs `got` (tuple) vs plain(); time kernel() and plain()."""
-    err = max_abs_err(list(zip(got, plain())))
-    records[name] = dict(max_abs_err=err, shape=shape,
-                         ms=cuda_ms(kernel, 5),
-                         plain_ms=cuda_ms(plain, plain_reps))
-    log(f"{name} {shape}: max_abs_err {err} kernel "
-        f"{records[name]['ms']:.3f} ms plain {records[name]['plain_ms']:.3f}"
-        f" ms")
+def check(records, name, shape, got, kernel, plain, plain_reps=2, sub=None):
+    """Kernel outputs `got` (tuple) vs plain(); time kernel() and plain().
+    plain_reps=0 times the one checking run of plain() instead (for plain
+    versions that take many seconds).  The record goes to records[name], or
+    to records[name][sub] for a further shape of the same kernel."""
+    import torch
+
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    want = plain()
+    b.record()
+    torch.cuda.synchronize()
+    err = max_abs_err(list(zip(got, want)))
+    rec = dict(max_abs_err=err, shape=shape, ms=cuda_ms(kernel, 5),
+               plain_ms=(cuda_ms(plain, plain_reps) if plain_reps
+                         else a.elapsed_time(b)))
+    if sub is None:
+        records.setdefault(name, {}).update(rec)
+        rec = records[name]
+    else:
+        records.setdefault(name, {})[sub] = rec
+    log(f"{name} {shape}: max_abs_err {err} kernel {rec['ms']:.3f} ms "
+        f"plain {rec['plain_ms']:.3f} ms")
     assert err == 0.0, f"{name} kernel disagrees with its plain version"
+    return rec
 
 
-def make_workload(args, work):
-    """Genome FASTA, pore model and BLOW5 reads in `work`; returns reads."""
-    from sigmap_tpu.io.pore_model import make_synthetic_pore_model
+def write_reads(sig, reads):
+    """Simulated reads -> `sig`/reads.blow5 (zlib records)."""
     from sigmap_tpu.io.slow5 import COMP_ZLIB, SIGCOMP_NONE, write_blow5
-    from sigmap_tpu.synth import (genome_to_fasta_str, random_genome,
-                                  simulate_reads)
 
-    pore = make_synthetic_pore_model(k=6, seed=0)
-    genome = random_genome(int(args.genome_mb * 1e6), seed=SEED)
-    with open(os.path.join(work, "ref.fa"), "w") as f:
-        f.write(genome_to_fasta_str(genome))
-    pore.save(os.path.join(work, "pore.model"))
-    reads = simulate_reads(pore, genome, args.reads, seed=SEED + 1,
-                           read_bases=READ_BASES)
-    sig = os.path.join(work, "signals")
     os.makedirs(sig, exist_ok=True)
     write_blow5(
         os.path.join(sig, "reads.blow5"),
@@ -122,6 +151,23 @@ def make_workload(args, work):
               range=r.range, offset=r.offset) for r in reads],
         rec_comp=COMP_ZLIB, sig_comp=SIGCOMP_NONE,
     )
+
+
+def make_workload(work, genome_bases, n_reads):
+    """Genome FASTA, pore model and BLOW5 reads in `work`; returns reads."""
+    from sigmap_tpu.io.pore_model import make_synthetic_pore_model
+    from sigmap_tpu.synth import (genome_to_fasta_str, random_genome,
+                                  simulate_reads)
+
+    os.makedirs(work, exist_ok=True)
+    pore = make_synthetic_pore_model(k=6, seed=0)
+    genome = random_genome(genome_bases, seed=SEED)
+    with open(os.path.join(work, "ref.fa"), "w") as f:
+        f.write(genome_to_fasta_str(genome))
+    pore.save(os.path.join(work, "pore.model"))
+    reads = simulate_reads(pore, genome, n_reads, seed=SEED + 1,
+                           read_bases=READ_BASES)
+    write_reads(os.path.join(work, "signals"), reads)
     return reads
 
 
@@ -270,6 +316,187 @@ def profile_warm(mapper, signals, work):
         log(f"  device {ms:10.3f} ms {cnt:6d}x  {name[:70]}")
 
 
+ALIGN_LINE = re.compile(
+    r"Read name: (\S+), reference name: (\S+)\n"
+    r"DTW distance: ([^,]+), (?:mapping_end_position: (-?\d+)\.|"
+    r"feature_mapping_end_position: (-?\d+), "
+    r"rough mapping end postion: (-?\d+)\.)")
+
+
+def debug_phase(records, by_path, dev, work):
+    """Phase 6: B5 == plain at bench.py's DTW shape and on the inputs of
+    debug_modes' own pair preparation, the two align modes and the two
+    dumps through the CLI."""
+    import numpy as np
+    import torch
+
+    from sigmap_tpu.config import EventDetectorConfig
+    from sigmap_tpu.io.signals import load_all_read_signals
+    from sigmap_tpu_torch import LAUNCHES, cli, debug_modes, reset_launches
+    from sigmap_tpu_torch.mapping.driver import whole_read_rows
+    from sigmap_tpu_torch.ops.sdtw_kernel import sdtw, sdtw_plain
+    from sigmap_tpu_torch.signal.events import feature_stages
+
+    # --- B5 at bench.py:bench_dtw's shape ----------------------------------
+    B, T, Q = DTW_SHAPE
+    rng = np.random.default_rng(0)
+    args = (torch.from_numpy(rng.normal(0, 1, (B, T)).astype(np.float32)),
+            torch.full((B,), T, dtype=torch.int32),
+            torch.from_numpy(rng.normal(0, 1, (B, Q)).astype(np.float32)),
+            torch.full((B,), Q, dtype=torch.int32))
+    args = tuple(a.to(dev) for a in args)
+    rec = check(records, "sdtw", f"B={B} T={T} Q={Q}", sdtw(*args),
+                lambda: sdtw(*args), lambda: sdtw_plain(*args),
+                sub="bench_dtw")
+    rec["cell_updates_per_s"] = B * T * Q / (rec["ms"] / 1e3)
+    log(f"sdtw bench shape: {rec['cell_updates_per_s']:.6e} cell updates/s")
+
+    # --- the debug path's own inputs, all pairs, full width -----------------
+    t0 = time.perf_counter()
+    reads = make_workload(work, DEBUG_GENOME, DEBUG_READS)
+    ref, pore, sig = (os.path.join(work, x)
+                      for x in ("ref.fa", "pore.model", "signals"))
+    log(f"debug workload: {DEBUG_GENOME} bases, {len(reads)} reads x "
+        f"{READ_BASES} bases ({time.perf_counter() - t0:.1f} s)")
+    truth = {r.read_id: r for r in reads}
+    for mode, prep in (("dtw-align", debug_modes.dtw_pairs),
+                       ("cwt-align", debug_modes.cwt_pairs)):
+        labels, targets, queries = prep(ref, pore, sig)[:3]
+        assert debug_modes.batch_bounds(targets, queries) == [
+            (0, len(targets))], "the pairs should fit one batch"
+        args = debug_modes.pack_pairs(targets, queries, dev)
+        got = sdtw(*args)
+        rec = check(records, "sdtw",
+                    f"{mode} pairs={len(targets)} T={args[0].shape[1]} "
+                    f"Q={args[2].shape[1]}", got, lambda: sdtw(*args),
+                    lambda: sdtw_plain(*args), plain_reps=0,
+                    sub=None if mode == "dtw-align" else "cwt_align")
+        cells = sum(len(t) * len(q) for t, q in zip(targets, queries))
+        rec["cell_updates_per_s"] = cells / (rec["ms"] / 1e3)
+        log(f"sdtw {mode}: {cells} cells, "
+            f"{rec['cell_updates_per_s']:.6e} cell updates/s")
+
+        reset_launches()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stderr(buf):
+            rc = cli.main(["--debug-mode", mode, "-r", ref, "-p", pore,
+                           "-s", sig])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        by_path[mode] = dict(LAUNCHES)
+        assert rc == 0, f"{mode} failed ({rc})"
+        lines = ALIGN_LINE.findall(buf.getvalue())
+        assert [(m[0], m[1]) for m in lines] == labels, \
+            f"{mode}: {len(lines)} lines for {len(labels)} pairs"
+        ends = [int(m[3] or m[4]) for m in lines]
+        assert ends == got[1].cpu().tolist(), f"{mode}: ends differ"
+        assert min(ends) >= 1, f"{mode}: an end position < 1"
+        # sanity figure: the end's reference position inside the simulated
+        # locus +- 10, forward-strand reads (the reference is forward only)
+        pos = [e - 1 if not m[5] else int(m[5]) for e, m in zip(ends, lines)]
+        fwd = [(truth[m[0]], p) for m, p in zip(lines, pos)
+               if truth[m[0]].strand == 1]
+        inside = sum(r.ref_start - 10 <= p <= r.ref_end + 10 for r, p in fwd)
+        log(f"{mode} via CLI: {len(lines)} lines in {wall:.3f} s; sdtw "
+            f"launches {by_path[mode]['sdtw']}; forward-strand reads ending "
+            f"inside their locus +-10: {inside}/{len(fwd)}")
+        assert by_path[mode]["sdtw"] > 0, f"{mode} did not launch B5"
+
+    # --- the two dumps of the same reads ------------------------------------
+    prefix = os.path.join(work, "dump")
+    for mode in ("events-to-text", "fast5-to-text"):
+        t0 = time.perf_counter()
+        with contextlib.redirect_stderr(io.StringIO()):
+            rc = cli.main(["--debug-mode", mode, "-s", sig, "-o", prefix])
+        assert rc == 0, f"{mode} failed ({rc})"
+        log(f"{mode}: {time.perf_counter() - t0:.1f} s")
+    signals = load_all_read_signals(sig)
+    with open(prefix + "_fast5") as f:
+        n_fast5 = sum(1 for _ in f)
+    n_samples = sum(len(s.pa) for s in signals)
+    with open(prefix + "_event") as f:
+        n_event = sum(1 for _ in f)
+    # events per read from the port's device event stages on whole reads
+    chunks, lengths = whole_read_rows(signals)
+    E = chunks.shape[1] // 4
+    st = feature_stages(torch.from_numpy(chunks).to(dev),
+                        torch.from_numpy(lengths).to(dev),
+                        EventDetectorConfig(), E, E)
+    n_dev = int(st.num_events.sum())
+    log(f"dumps: fast5-to-text {n_fast5} lines ({n_samples} samples); "
+        f"events-to-text {n_event} lines (device event stages: {n_dev} "
+        f"events)")
+    assert n_fast5 == n_samples, "fast5-to-text: one line per sample"
+    assert abs(n_event - n_dev) <= max(1, n_dev // 1000), \
+        "events-to-text: line count off the event count"
+
+
+def exact_phase(records, by_path, dev, work, reads, map_args):
+    """Phase 7: -m --engine exact and -m --batch-mode through the CLI on
+    phase 4's index, each on a prefix of phase 4's reads."""
+    import torch
+
+    from sigmap_tpu.cli import build_parser, make_config
+    from sigmap_tpu.io.signals import load_all_read_signals
+    from sigmap_tpu_torch import LAUNCHES, cli, reset_launches
+    from sigmap_tpu_torch.mapping.driver import streaming_rows, whole_read_rows
+    from sigmap_tpu_torch.signal import events_kernels as EK
+    from sigmap_tpu_torch.signal.events import feature_stages
+
+    for name, flag, n in (("exact", "--engine=exact", EXACT_READS),
+                          ("batch-mode", "--batch-mode", BATCH_MODE_READS)):
+        sub = reads[:n]
+        sig = os.path.join(work, f"signals_{n}")
+        write_reads(sig, sub)
+        paf = os.path.join(work, f"{name}.paf")
+        args = [*map_args, "-s", sig, "-o", paf, flag]
+        # B1 / B2 on the path's first event rows, built as its Mapper does
+        cfg = make_config(build_parser().parse_args(args))
+        m, rt = cfg.mapping, cfg.runtime
+        signals = load_all_read_signals(sig, m.pa_lo, m.pa_hi)
+        if name == "exact":        # streaming_map's first wavefront
+            first = [s for s in signals
+                     if s.length // m.chunk_size][: rt.read_batch]
+            chunks, lengths = streaming_rows(first, [0] * len(first),
+                                             rt.read_batch, m.chunk_size)
+            E, F_ = rt.max_events, rt.max_features
+        else:                      # map_reads' first batch
+            chunks, lengths = whole_read_rows(signals[: rt.read_batch])
+            E = F_ = max(1024, chunks.shape[1] // 4)
+        R, C = chunks.shape
+        x = torch.from_numpy(chunks).to(dev)
+        n_ = torch.from_numpy(lengths).to(dev)
+        ec, delta = cfg.event, m.compress_delta
+        fs = feature_stages(x, n_, ec, E, F_, delta)
+        tag = name.replace("-", "_")
+        check(records, "peaks", f"R={R} C={C}", (fs.emits,),
+              lambda: (EK.detect_peaks(fs.t1, fs.t2, n_, ec),),
+              lambda: (EK.detect_peaks_plain(fs.t1, fs.t2, n_, ec),),
+              plain_reps=0, sub=tag)
+        check(records, "compress_keep", f"R={R} E={E}", (fs.keep,),
+              lambda: (EK.compress_keep(fs.norm, fs.num_events, delta),),
+              lambda: (EK.compress_keep_plain(fs.norm, fs.num_events,
+                                              delta),),
+              plain_reps=0, sub=tag)
+        del x, n_, fs
+        reset_launches()
+        rc = cli.main(args)
+        torch.cuda.synchronize()
+        by_path[name] = dict(LAUNCHES)
+        assert rc == 0, f"{name} mapping failed ({rc})"
+        run = cli.LAST_MAP
+        mapped, correct = score_paf(paf, sub)
+        log(f"{name}: {run['reads']} reads in {run['map_s']:.3f} s = "
+            f"{run['reads'] / run['map_s']:.3f} reads/s; mapped {mapped}/{n}"
+            f", correct {correct}/{n}; launches {by_path[name]}")
+        assert mapped >= 0.99 * n, f"{name}: only {mapped}/{n} reads mapped"
+        assert correct >= 0.99 * n, \
+            f"{name}: only {correct}/{n} reads mapped correctly"
+        for k in ("peaks", "compress_keep"):
+            assert by_path[name][k] > 0, f"{name} did not launch {k}"
+
+
 def score_paf(path, reads):
     """(mapped, correct) against the simulation truth (bench.py accuracy)."""
     by_name = {}
@@ -323,9 +550,8 @@ def main():
     log(f"build: kernels + native core {time.perf_counter() - t0:.1f} s")
 
     work = os.path.join(ROOT, "build", "chip_smoke")
-    os.makedirs(work, exist_ok=True)
     t0 = time.perf_counter()
-    reads = make_workload(args, work)
+    reads = make_workload(work, int(args.genome_mb * 1e6), args.reads)
     log(f"workload: {args.genome_mb} Mb genome, {len(reads)} reads x "
         f"{READ_BASES} bases ({time.perf_counter() - t0:.1f} s)")
     common = ["-r", os.path.join(work, "ref.fa"),
@@ -340,14 +566,16 @@ def main():
                 "-s", os.path.join(work, "signals"), "-o", paf,
                 "--read-batch", str(args.batch)]
     records: dict = {}
-    mapper, signals = compare_kernels(map_args, records, torch.device("cuda"))
+    by_path: dict = {}       # launches of each path, counted from 0
+    dev = torch.device("cuda")
+    mapper, signals = compare_kernels(map_args, records, dev)
 
     resident = torch.cuda.memory_allocated()      # phase 3's mapper
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     rc = cli.main(map_args)
     torch.cuda.synchronize()
-    launches = dict(LAUNCHES)
+    launches = by_path["turbo"] = dict(LAUNCHES)
     assert rc == 0, f"mapping failed ({rc})"
     run = cli.LAST_MAP
     mapped, correct = score_paf(paf, reads)
@@ -361,15 +589,26 @@ def main():
         f"(beyond phase 3's resident mapper); launches {launches}")
     assert mapped >= 0.99 * n, f"only {mapped}/{n} reads mapped"
     assert correct >= 0.99 * n, f"only {correct}/{n} reads mapped correctly"
-    for name, cnt in launches.items():
-        assert cnt > 0, f"kernel {name} was not launched on the main path"
+    for name in ("peaks", "compress_keep", "sweep", "chain_fused"):
+        assert launches[name] > 0, \
+            f"kernel {name} was not launched on the main path"
 
     profile_warm(mapper, signals, work)
     mapper.close()
+    del mapper, signals
+    torch.cuda.empty_cache()
+
+    debug_phase(records, by_path, dev, os.path.join(work, "debug"))
+    exact_phase(records, by_path, dev, work, reads,
+                ["-m", *common, "-x", os.path.join(work, "idx"),
+                 "--read-batch", str(EXACT_READ_BATCH)])
 
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=src, replaces=rep,
-             launches=launches[name], **records[name])
+             launches=sum(p[name] for p in by_path.values()),
+             launches_by_path={k: p[name] for k, p in by_path.items()
+                               if p[name]},
+             **records[name])
         for name, (src, rep) in KERNELS.items()
     ]}))
     print(f"card: {card}")

@@ -1,17 +1,19 @@
-"""PyTorch + CUDA port of sigmap_tpu's turbo streaming mapper.
+"""PyTorch + CUDA port of sigmap_tpu's mapper.
 
 The JAX package ``sigmap_tpu`` stays the reference.  This package mirrors
-its module names (``signal/events.py``, ``ops/sweep_kernel.py``,
-``ops/chain_fused.py``, ``mapping/sweep_search.py``, ``mapping/turbo.py``,
-``oracle.py``, ``cli.py``) and reuses its JAX-free host modules
-(``config``, ``io``, ``index``, ``native``, ``mapping.chain``, ``synth``).
-It never imports JAX.
+its module names (``signal/events.py``, ``signal/events_ref.py``,
+``ops/sweep_kernel.py``, ``ops/chain_fused.py``, ``ops/sdtw_kernel.py``,
+``mapping/sweep_search.py``, ``mapping/turbo.py``, ``mapping/seeding.py``,
+``mapping/driver.py``, ``oracle.py``, ``debug_modes.py``, ``cli.py``) and
+reuses its JAX-free host modules (``config``, ``io``, ``index``,
+``native``, ``mapping.chain``, ``ops.cwt``, ``synth``).  It never imports
+JAX.
 
-Every Pallas kernel of the main path has a hand-written CUDA C++ kernel for
-Hopper (``csrc/``) and a plain PyTorch version beside it.  A wrapper runs
-the plain version on a CPU tensor and launches the kernel on a CUDA tensor;
-there is no fallback between the two.  Every entry point takes an explicit
-``device``.
+Every Pallas kernel of the JAX package has a hand-written CUDA C++ kernel
+for Hopper (``csrc/``) and a plain PyTorch version beside it.  A wrapper
+runs the plain version on a CPU tensor and launches the kernel on a CUDA
+tensor; there is no fallback between the two.  Every entry point takes an
+explicit ``device``.
 """
 
 from ._build import LAUNCHES, reset_launches

@@ -36,7 +36,7 @@ NVCC_FLAGS = (
     # every kernel reproduces the reference's f32 rounding op by op: no
     # contraction of a*b+c into FMA, IEEE division and square root
     "-fmad=false", "-prec-div=true", "-prec-sqrt=true",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
 # native/Makefile's flags without -fopenmp: core.cc has no OpenMP code, and
@@ -44,7 +44,8 @@ NVCC_FLAGS = (
 # may lack
 NATIVE_CXXFLAGS = "-O3 -march=native -fPIC -std=c++17 -Wall"
 
-LAUNCHES = {"peaks": 0, "compress_keep": 0, "sweep": 0, "chain_fused": 0}
+LAUNCHES = {"peaks": 0, "compress_keep": 0, "sweep": 0, "chain_fused": 0,
+            "sdtw": 0}
 
 _kernels = None
 _native_ready = False
@@ -86,12 +87,27 @@ def kernels() -> ctypes.CDLL:
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *(str(s) for s in srcs if s.suffix == ".cu")]
-        r = subprocess.run(cmd, capture_output=True, text=True)
+        # one nvcc per source, all at once, then one link
+        objs, procs = [], []
+        for s in srcs:
+            if s.suffix != ".cu":
+                continue
+            obj = BUILD_DIR / f"{s.stem}_{tag}.{os.getpid()}.o"
+            objs.append(str(obj))
+            procs.append(subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(s)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        logs = [(p.communicate()[0], p) for p in procs]
+        for text, p in logs:
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({p.returncode}):\n{text}")
+        r = subprocess.run([_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                            *objs], capture_output=True, text=True)
+        for o in objs:
+            os.remove(o)
         if r.returncode != 0:
             raise RuntimeError(
-                f"nvcc failed ({r.returncode}):\n{r.stdout}\n{r.stderr}"
+                f"nvcc link failed ({r.returncode}):\n{r.stdout}\n{r.stderr}"
             )
         os.replace(tmp, out)   # a concurrent build never sees half a file
     lib = ctypes.CDLL(str(out))
@@ -114,6 +130,8 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.sig_chain_fused_launch.argtypes = (
         [P] * 9 + [I] * 5 + [F, I, I, I, F, F] + [P] * 12 + [P]
     )
+    lib.sig_sdtw_launch.restype = I
+    lib.sig_sdtw_launch.argtypes = [P, P, P, P, I, I, I, I, P, P, P, P]
 
 
 def check(err: int, name: str) -> None:

@@ -3,12 +3,16 @@
   index:  python -m sigmap_tpu_torch.cli -i -r ref.fa -p pore.model -o prefix
   map:    python -m sigmap_tpu_torch.cli -m -r ref.fa -p pore.model \
               -x prefix -s signal_dir -o out.paf [--read-batch 2048] ...
+  debug:  python -m sigmap_tpu_torch.cli --debug-mode dtw-align \
+              -r ref.fa -p pore.model -s signal_dir
 
 ``-i`` runs the reference's JAX-free index build (``sigmap_tpu.cli.run_index``)
-on the port's own build of the native core.  ``-m`` maps with the port's
-turbo engine on the CUDA device and fails when there is none.
-``--engine exact`` and ``--batch-mode`` are not ported yet and exit with an
-error rather than running something else.
+on the port's own build of the native core.  ``-m`` maps on the CUDA device
+with the turbo engine (default), the exact streaming engine
+(``--engine exact``) or whole-read batch mode (``--batch-mode``), and fails
+when there is no CUDA device.  ``--debug-mode dtw-align`` and ``cwt-align``
+run their sDTW (kernel B5) on the CUDA device and fail without one;
+``fast5-to-text`` and ``events-to-text`` are host work and run anywhere.
 """
 
 from __future__ import annotations
@@ -25,14 +29,18 @@ from . import _build
 LAST_MAP: dict = {}
 
 
+def _no_gpu(what: str) -> int:
+    print(f"sigmap_tpu_torch: no CUDA device; {what} needs a GPU",
+          file=sys.stderr)
+    return 2
+
+
 def run_map(args) -> int:
     import torch
 
     from sigmap_tpu.index.build import SignalIndex
     from sigmap_tpu.io.paf import PAFWriter
     from sigmap_tpu.io.signals import load_all_read_signals
-
-    from .mapping.turbo import TurboMapper
 
     for flag, name in (
         (args.ref, "reference"), (args.pore_model, "pore model"),
@@ -43,9 +51,7 @@ def run_map(args) -> int:
             print(f"No {name} specified!", file=sys.stderr)
             return 1
     if not torch.cuda.is_available():
-        print("sigmap_tpu_torch: no CUDA device; mapping needs a GPU",
-              file=sys.stderr)
-        return 2
+        return _no_gpu("mapping")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = make_config(args)
@@ -71,43 +77,73 @@ def run_map(args) -> int:
         args.sig_dir, cfg.mapping.pa_lo, cfg.mapping.pa_hi
     )
     print(f"Loaded {len(signals)} reads.", file=sys.stderr)
-    mapper = TurboMapper(idx, cfg, device="cuda")
+    # engine dispatch as in sigmap_tpu.cli.run_map
+    turbo = not (args.batch_mode or args.engine == "exact")
+    if turbo:
+        from .mapping.turbo import TurboMapper
+
+        mapper = TurboMapper(idx, cfg, device="cuda")
+        run = mapper.streaming_map
+    else:
+        from .mapping.driver import Mapper
+
+        mapper = Mapper(idx, cfg, device="cuda")
+        run = mapper.map_reads if args.batch_mode else mapper.streaming_map
     t_map = time.time()
-    records = mapper.streaming_map(signals)
+    records = run(signals)
+    torch.cuda.synchronize()
     t_map = time.time() - t_map
-    mapper.close()
+    rescued = (0, 0)
+    if turbo:
+        mapper.close()
+        rescued = (mapper.n_rescued, mapper.n_rescued_mapped)
     writer = PAFWriter(args.output, idx.ref_names, idx.ref_lengths)
     for rec in records:
         writer.append(rec)
     n = writer.finalize()
     LAST_MAP.clear()
     LAST_MAP.update(reads=len(signals), records=n, map_s=t_map,
-                    rescued=mapper.n_rescued,
-                    rescued_mapped=mapper.n_rescued_mapped)
+                    rescued=rescued[0], rescued_mapped=rescued[1])
     print(
         f"Finished mapping in {time.time() - t0:.1f}s "
-        f"(streaming {t_map:.3f}s), # reads: {len(signals)}, "
-        f"# records: {n}, rescued: {mapper.n_rescued}",
+        f"(mapping {t_map:.3f}s), # reads: {len(signals)}, "
+        f"# records: {n}, rescued: {rescued[0]}",
         file=sys.stderr,
     )
+    return 0
+
+
+def run_debug_mode(args) -> int:
+    import torch
+
+    from . import debug_modes
+
+    if args.debug_mode == "fast5-to-text":
+        path = debug_modes.fast5_to_text(args.sig_dir, args.output)
+    elif args.debug_mode == "events-to-text":
+        path = debug_modes.events_to_text(
+            args.sig_dir, args.output, make_config(args)
+        )
+    else:
+        if not torch.cuda.is_available():
+            return _no_gpu(f"--debug-mode {args.debug_mode}")
+        align = (debug_modes.dtw_align if args.debug_mode == "dtw-align"
+                 else debug_modes.cwt_align)
+        align(args.ref, args.pore_model, args.sig_dir, out=sys.stderr,
+              device="cuda")
+        path = "(stderr)"
+    print(f"debug mode {args.debug_mode} -> {path}", file=sys.stderr)
     return 0
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if args.debug_mode:
-        print("sigmap_tpu_torch: --debug-mode is not ported yet",
-              file=sys.stderr)
-        return 2
+        return run_debug_mode(args)
     if args.build_index:
         _build.native()
         return run_index(args)
     if args.map:
-        if args.batch_mode or args.engine == "exact":
-            what = "--batch-mode" if args.batch_mode else "--engine exact"
-            print(f"sigmap_tpu_torch: {what} is not yet ported",
-                  file=sys.stderr)
-            return 2
         _build.native()
         return run_map(args)
     build_parser().print_help(sys.stderr)

@@ -2,10 +2,10 @@
 
 Counterpart of ``sigmap_tpu/signal/events.py`` (``batch_tstat``,
 ``compact_nonzero``, ``events_means_batch``, ``zscore_masked``,
-``compress_means_batch``, ``batch_generate_features``): plain tensor code
-around the two kernels of ``events_kernels.py``.  ``feature_stages`` keeps
-every intermediate, so a check of the kernels can take their inputs from
-the main path itself.  Every tensor stays on the device of its input.
+``compress_means_batch``, ``batch_generate_features``): plain tensor code around the two kernels of
+``events_kernels.py``.  ``feature_stages`` keeps every intermediate, so a
+check of the kernels can take their inputs from the main path itself.
+Every tensor stays on the device of its input.
 """
 
 from __future__ import annotations
@@ -167,7 +167,14 @@ def batch_generate_features(chunks, lengths,
                             max_events: int = 1024, max_features: int = 1024,
                             compress_delta: float = 0.1):
     """[B, C] raw pA chunks + [B] lengths -> (features [B, F] f32,
-    feature counts [B] i32)."""
+    feature counts [B] i32).
+
+    Also the exact engine's features: the Mapper uses only the features
+    and counts of ``batch_generate_events`` (events.py:309-344), whose
+    ``events_from_peaks_batch`` means are ``events_means_batch``'s and
+    whose ``compress_features_batch`` kept set is B2's keep mask.  Its
+    feature stdvs are left out: nothing in the port consumes them."""
     st = feature_stages(chunks, lengths, cfg, max_events, max_features,
                         compress_delta)
     return st.feats, st.counts
+

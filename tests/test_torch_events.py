@@ -114,6 +114,18 @@ def test_batch_generate_features_matches(case):
                                rtol=0)
 
 
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_features_match_exact_engine_events(case):
+    """The exact engine's features are batch_generate_features'."""
+    sigs, lengths = CASES[case]()
+    fj, _stdv, cj, _nev = jev.batch_generate_events(sigs, lengths)
+    fp, cp = tev.batch_generate_features(torch.from_numpy(sigs),
+                                         torch.from_numpy(lengths))
+    np.testing.assert_array_equal(cp.numpy(), np.asarray(cj))
+    np.testing.assert_allclose(fp.numpy(), np.asarray(fj), atol=FEAT_ATOL,
+                               rtol=0)
+
+
 def test_compact_nonzero_matches():
     rng = np.random.default_rng(1)
     v = np.where(rng.random((7, 300)) < 0.1,
