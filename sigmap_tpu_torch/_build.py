@@ -6,10 +6,9 @@ hash of their sources or flags changes:
 
 * the Hopper kernels, ``csrc/*.cu`` compiled by ``nvcc`` for ``sm_90a``
   into one library with a plain C interface, loaded with ``ctypes``;
-* the host core ``native/core.cc`` (k-d tree, event features, k-mer masks,
-  dedup) through its own Makefile, with ``OUT`` pointed into the build
-  directory.  ``sigmap_tpu.native`` is then pointed at that library before
-  it first loads, so the port never relies on a prebuilt binary.
+* the host core ``csrc/core.cc`` (k-d tree, event features, k-mer masks,
+  dedup) compiled by ``g++``; the port's ``native`` module loads it, so the
+  port never relies on a prebuilt binary.
 
 A build failure raises; nothing falls back.
 
@@ -21,6 +20,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import json
 import os
 import shutil
 import subprocess
@@ -37,15 +37,20 @@ NVCC_FLAGS = (
     # contraction of a*b+c into FMA, IEEE division and square root
     "-fmad=false", "-prec-div=true", "-prec-sqrt=true",
     "-Xcompiler", "-fPIC",
+    # each kernel's registers, shared memory, stack and spills (BUILD_LOG)
+    "-Xptxas", "-v",
 )
 
-# native/Makefile's flags without -fopenmp: core.cc has no OpenMP code, and
-# the flag only adds a dependency on the toolchain's libgomp, which a host
-# may lack
+# core.cc has no OpenMP code: no -fopenmp, which would only add a dependency
+# on the toolchain's libgomp, which a host may lack
 NATIVE_CXXFLAGS = "-O3 -march=native -fPIC -std=c++17 -Wall"
 
 LAUNCHES = {"peaks": 0, "compress_keep": 0, "sweep": 0, "chain_fused": 0,
             "sdtw": 0}
+
+# compiler output of the kernel library's build by source stem (ptxas -v
+# lines), kept beside the library as <library>.log.json
+BUILD_LOG: dict = {}
 
 _kernels = None
 _native_ready = False
@@ -88,19 +93,18 @@ def kernels() -> ctypes.CDLL:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         # one nvcc per source, all at once, then one link
-        objs, procs = [], []
-        for s in srcs:
-            if s.suffix != ".cu":
-                continue
-            obj = BUILD_DIR / f"{s.stem}_{tag}.{os.getpid()}.o"
-            objs.append(str(obj))
-            procs.append(subprocess.Popen(
-                [_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(s)],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        cus = [s for s in srcs if s.suffix == ".cu"]
+        objs = [str(BUILD_DIR / f"{s.stem}_{tag}.{os.getpid()}.o")
+                for s in cus]
+        procs = [subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-c", "-o", obj, str(s)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for s, obj in zip(cus, objs)]
         logs = [(p.communicate()[0], p) for p in procs]
-        for text, p in logs:
+        for s, (text, p) in zip(cus, logs):
             if p.returncode != 0:
                 raise RuntimeError(f"nvcc failed ({p.returncode}):\n{text}")
+        log = {s.stem: text for s, (text, _) in zip(cus, logs)}
         r = subprocess.run([_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp),
                             *objs], capture_output=True, text=True)
         for o in objs:
@@ -109,7 +113,13 @@ def kernels() -> ctypes.CDLL:
             raise RuntimeError(
                 f"nvcc link failed ({r.returncode}):\n{r.stdout}\n{r.stderr}"
             )
+        log_tmp = tmp.with_suffix(".log")
+        log_tmp.write_text(json.dumps(log))
+        os.replace(log_tmp, out.with_suffix(".log.json"))
         os.replace(tmp, out)   # a concurrent build never sees half a file
+    log_path = out.with_suffix(".log.json")
+    if log_path.exists():
+        BUILD_LOG.update(json.loads(log_path.read_text()))
     lib = ctypes.CDLL(str(out))
     _bind(lib)
     _kernels = lib
@@ -124,7 +134,7 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.sig_compress_keep_launch.argtypes = [P, P, I, I, F, P, P]
     lib.sig_sweep_launch.restype = I
     lib.sig_sweep_launch.argtypes = [
-        P, P, I, I, P, P, I, F, I, I, I, P, P, P, P,
+        P, P, I, I, P, P, I, F, I, I, I, P, P, P, P, P,
     ]
     lib.sig_chain_fused_launch.restype = I
     lib.sig_chain_fused_launch.argtypes = (
@@ -140,33 +150,33 @@ def check(err: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
 
 
+def native_library() -> Path:
+    """csrc/core.cc compiled into the build directory (once per source and
+    flags hash); returns the library's path."""
+    src = CSRC / "core.cc"
+    out = BUILD_DIR / f"libsigmap_core_{_digest([src], (NATIVE_CXXFLAGS,))}.so"
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        r = subprocess.run(["g++", *NATIVE_CXXFLAGS.split(), "-shared", "-o",
+                            str(tmp), str(src)], capture_output=True, text=True)
+        if r.returncode != 0:
+            raise RuntimeError(
+                f"native core build failed:\n{r.stdout}\n{r.stderr}")
+        os.replace(tmp, out)
+    return out
+
+
 def native() -> None:
-    """Build native/core.cc into the build directory and point
-    ``sigmap_tpu.native`` at it; raise if it does not load."""
+    """Build csrc/core.cc, point the port's ``native`` module at it, and
+    raise if it does not load."""
     global _native_ready
     if _native_ready:
         return
-    from sigmap_tpu import native as nat
+    from . import native as nat
 
     if nat._lib is None:
-        src = REPO / "native" / "core.cc"
-        tag = _digest([src, REPO / "native" / "Makefile"],
-                      (NATIVE_CXXFLAGS,))
-        out = BUILD_DIR / f"libsigmap_core_{tag}.so"
-        if not out.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            r = subprocess.run(
-                ["make", "-s", "-B", "-C", str(REPO / "native"),
-                 f"OUT={tmp}", f"CXXFLAGS={NATIVE_CXXFLAGS}"],
-                capture_output=True, text=True,
-            )
-            if r.returncode != 0:
-                raise RuntimeError(
-                    f"native core build failed:\n{r.stdout}\n{r.stderr}"
-                )
-            os.replace(tmp, out)
-        nat._SO = out
+        nat._SO = native_library()
     if not nat.available():
-        raise RuntimeError("the native core (native/core.cc) did not load")
+        raise RuntimeError("the native core (csrc/core.cc) did not load")
     _native_ready = True

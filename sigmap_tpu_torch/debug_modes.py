@@ -19,13 +19,12 @@ import sys
 import numpy as np
 import torch
 
-from sigmap_tpu.config import SigmapConfig
-from sigmap_tpu.index.build import zscore_f64
-from sigmap_tpu.io.fasta import read_fasta
-from sigmap_tpu.io.pore_model import PoreModel
-from sigmap_tpu.io.signals import load_all_read_signals
-from sigmap_tpu.ops.cwt import cwt_feature_signal
-
+from .config import SigmapConfig
+from .index.build import zscore_f64
+from .io.fasta import read_fasta
+from .io.pore_model import PoreModel
+from .io.signals import load_all_read_signals
+from .ops.cwt import cwt_feature_signal
 from .ops.sdtw_kernel import sdtw
 from .signal import events_ref
 

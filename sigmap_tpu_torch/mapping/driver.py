@@ -5,7 +5,7 @@ design): reads advance in lockstep wavefronts; event features
 (``signal.events.batch_generate_features``, kernels B1 and B2: the exact
 engine's features are turbo's) and the seed radius search
 (``mapping.seeding``) run on ``device``; chunk assembly,
-per-read chaining (``sigmap_tpu.mapping.chain``, with the ``-t`` thread
+per-read chaining (``mapping.chain``, with the ``-t`` thread
 pool), stop rules and PAF records stay on the host, as in the JAX package.
 """
 
@@ -20,13 +20,12 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from sigmap_tpu.config import SigmapConfig
-from sigmap_tpu.index.build import SignalIndex
-from sigmap_tpu.io.paf import PAFRecord, batch_tags
-from sigmap_tpu.io.signals import ReadSignal
-from sigmap_tpu.mapping.chain import generate_chains, make_anchors
-
+from ..config import SigmapConfig
+from ..index.build import SignalIndex
+from ..io.paf import PAFRecord, batch_tags
+from ..io.signals import ReadSignal
 from ..signal.events import batch_generate_features
+from .chain import generate_chains, make_anchors
 from .records import chains_summary, mapped_record, streaming_record
 from .seeding import (
     DeviceIndex, autotune_params, flatten_matches, pad_seeds, search_flat,

@@ -1,14 +1,14 @@
 """PAF record builders for the exact-engine rescue path.
 
-JAX-free copies of ``sigmap_tpu/mapping/driver.py``'s ``chains_summary``,
-``mapped_record`` and ``streaming_record`` (driver.py imports JAX at module
-top, so the port cannot import them).
+Copies of ``sigmap_tpu/mapping/driver.py``'s ``chains_summary``,
+``mapped_record`` and ``streaming_record`` (the port imports nothing of the
+JAX package).
 """
 
 from __future__ import annotations
 
-from sigmap_tpu.io.paf import ChainsSummary, PAFRecord, streaming_tags
-from sigmap_tpu.mapping.chain import POSITIVE, Chain
+from ..io.paf import ChainsSummary, PAFRecord, streaming_tags
+from .chain import POSITIVE, Chain
 
 
 def chains_summary(chains: list[Chain]) -> ChainsSummary:

@@ -30,7 +30,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from sigmap_tpu.index.build import SignalIndex
+from ..index.build import SignalIndex
 
 # device memory one group of tiles may take in the search: ~96 bytes per
 # (seed, probe) in the probe pass, ~96 bytes per candidate slot after it
@@ -42,7 +42,7 @@ SLOT_BYTES = 96
 @dataclass(frozen=True)
 class SearchParams:
     """Fields of ``sigmap_tpu.mapping.seeding.SearchParams`` (re-declared:
-    that module imports JAX)."""
+    the port imports nothing of the JAX package)."""
 
     radius: float = 0.08          # squared-L2 (sigmap.cc:1380)
     dim: int = 6

@@ -3,9 +3,10 @@
 Counterpart of ``sigmap_tpu/mapping/sweep_search.py``: rotate seeds into the
 index's PCA basis, sort them (stably) by lo-corner cell key, compute each
 seed block's union of tile ranges from the dense cumulative cell table,
-merge them into disjoint intervals, run the kernel, and return results in
-the original seed order.  The reference's fixed-size launch chunking
-(``MAXG``) is not needed on the GPU: one launch covers every block.
+merge them into disjoint intervals, put the blocks with the most tiles
+first, run the kernel, and return results in the original seed order.
+The reference's fixed-size launch chunking (``MAXG``) is not needed on the
+GPU: one launch covers every block.
 """
 
 from __future__ import annotations
@@ -132,6 +133,19 @@ def prepare_round(seeds, cum, ntiles: int, rot, mu, origin, radius: float,
     return qr_s, blockmeta.contiguous(), perm
 
 
+def longest_first(qr_s, blockmeta, perm, block: int):
+    """prepare_round's outputs with the blocks reordered by descending tile
+    count (stable).  The kernel starts blocks in launch order, so in a round
+    with few live blocks the long ones no longer start last and set the
+    tail.  Each block writes only its own outputs and perm moves with it,
+    so sweep_round's results do not change."""
+    G = blockmeta.shape[1]
+    order = torch.sort(blockmeta[-1], descending=True, stable=True).indices
+    return (qr_s.view(G, block, 8)[order].reshape(-1, 8),
+            blockmeta[:, order].contiguous(),
+            perm.view(G, block)[order].reshape(-1))
+
+
 def sweep_round(seeds, cum, tiles, meta, rot, mu, origin, radius: float,
                 K: int = 16, TILE: int = 1024, dim: int = 6, block: int = 32,
                 radixes: tuple = (), span: int = 3,
@@ -142,10 +156,10 @@ def sweep_round(seeds, cum, tiles, meta, rot, mu, origin, radius: float,
     Returns (m_meta [Q0, K] i32, m_d2 [Q0, K] f32, cnt [Q0] i32 exact
     totals, wrote [Q0] i32 slots filled)."""
     Q0 = seeds.shape[0]
-    qr_s, blockmeta, perm = prepare_round(
+    qr_s, blockmeta, perm = longest_first(*prepare_round(
         seeds, cum, tiles.shape[0], rot, mu, origin, radius, TILE, dim,
         block, radixes, span, cell_width,
-    )
+    ), block)
     m_meta, m_d2, m_cnt = sweep_search(
         qr_s, blockmeta, tiles, meta, radius=radius, K=K, TILE=TILE,
         dim=dim, block=block,

@@ -26,14 +26,13 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from sigmap_tpu.config import (
+from ..config import (
     ChainingConfig, EventDetectorConfig, MappingConfig, SigmapConfig,
 )
-from sigmap_tpu.index.build import SignalIndex
-from sigmap_tpu.index.sweep import META_POS_BITS, SweepIndex
-from sigmap_tpu.io.paf import ChainsSummary, PAFRecord, streaming_tags
-from sigmap_tpu.io.signals import ReadSignal
-
+from ..index.build import SignalIndex
+from ..index.sweep import META_POS_BITS, SweepIndex
+from ..io.paf import ChainsSummary, PAFRecord, streaming_tags
+from ..io.signals import ReadSignal
 from ..ops.chain_fused import chain_fused
 from ..signal.events import batch_generate_features
 from .sweep_search import SEED_PAD, sweep_round

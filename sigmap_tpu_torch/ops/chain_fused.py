@@ -17,9 +17,8 @@ from __future__ import annotations
 
 import torch
 
-from sigmap_tpu.config import ChainingConfig
-
 from .._build import LAUNCHES, check, kernels
+from ..config import ChainingConfig
 
 NEG = -1.0e30
 

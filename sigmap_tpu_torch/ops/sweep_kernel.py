@@ -13,6 +13,13 @@ i32, m_d2 [Q, K] f32 (empty slots 0) and m_cnt [Q, 2] i32 (exact match
 total, slots written).  There is no ``nwave`` knob: the number of drain
 waves run unconditionally never changes a seed's slots (an extra wave only
 retires candidates that could no longer be inserted).
+
+The kernel takes TILE a multiple of 256, ``block`` a multiple of 4, dim
+1..8 and K <= 32 (a seed's slots sit in the lanes of one warp while it is
+drained).  The launch option ``overflow`` (one i32 on the device) receives
+the number of (seed, tile) drains that overflowed the kernel's sparse
+candidate list and took its dense path; the outputs do not depend on it,
+and the plain version, which has no candidate list, takes no such option.
 """
 
 from __future__ import annotations
@@ -129,7 +136,7 @@ def sweep_search_plain(seeds, blockmeta, tiles, meta, radius: float, K: int,
 
 
 def sweep_search(seeds, blockmeta, tiles, meta, radius: float, K: int,
-                 TILE: int, dim: int, block: int):
+                 TILE: int, dim: int, block: int, overflow=None):
     """B3 wrapper (see the module docstring for the contract)."""
     dev = seeds.device
     if dev.type == "cpu":
@@ -143,14 +150,20 @@ def sweep_search(seeds, blockmeta, tiles, meta, radius: float, K: int,
         raise ValueError("sweep_search: seeds must be [Q, 8], Q % block == 0")
     if tiles.shape != (T, 8, TILE) or meta.shape != (T, 8, TILE // 8):
         raise ValueError("sweep_search: tile store shape mismatch")
-    if TILE % 256 or not 1 <= dim <= 8:
-        raise ValueError("sweep_search: TILE must be a multiple of 256")
+    if TILE % 256 or not 1 <= dim <= 8 or block % 4 or not 1 <= K <= 32:
+        raise ValueError("sweep_search: TILE must be a multiple of 256, "
+                         "block of 4, dim in 1..8 and K in 1..32")
     G = Q // block
     NO = (blockmeta.shape[0] - 1) // 2
     if blockmeta.shape != (2 * NO + 1, G):
         raise ValueError("sweep_search: blockmeta shape mismatch")
+    if overflow is not None and overflow.shape != (1,):
+        raise ValueError("sweep_search: overflow must be [1]")
     for x, dt in ((seeds, torch.float32), (blockmeta, torch.int32),
-                  (tiles, torch.float32), (meta, torch.int32)):
+                  (tiles, torch.float32), (meta, torch.int32),
+                  (overflow, torch.int32)):
+        if x is None:
+            continue
         if x.dtype != dt or not x.is_contiguous() or x.device != dev:
             raise ValueError("sweep_search: inputs must be contiguous "
                              "f32/i32 tensors on one device")
@@ -162,6 +175,7 @@ def sweep_search(seeds, blockmeta, tiles, meta, radius: float, K: int,
         seeds.data_ptr(), blockmeta.data_ptr(), G, NO, tiles.data_ptr(),
         meta.data_ptr(), TILE, float(radius), K, dim, block,
         m_meta.data_ptr(), m_d2.data_ptr(), m_cnt.data_ptr(),
+        None if overflow is None else overflow.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     check(err, "sweep")

@@ -2,7 +2,7 @@
 
 JAX-free counterpart of ``sigmap_tpu/oracle.py`` with the same method
 names.  It runs on the native core only (event features, k-d tree radius
-search) plus ``sigmap_tpu.mapping.chain``; there is no numpy events
+search) plus ``mapping.chain``; there is no numpy events
 fallback, so it raises if the native core is missing.  The turbo mapper
 uses it to re-map reads that end unmapped after a capacity overflow.
 """
@@ -11,12 +11,10 @@ from __future__ import annotations
 
 import numpy as np
 
-from sigmap_tpu import native
-from sigmap_tpu.config import SigmapConfig
-from sigmap_tpu.index.build import SignalIndex
-from sigmap_tpu.mapping.chain import Chain, generate_chains, make_anchors
-
-from . import _build
+from . import _build, native
+from .config import SigmapConfig
+from .index.build import SignalIndex
+from .mapping.chain import Chain, generate_chains, make_anchors
 
 
 class Oracle:

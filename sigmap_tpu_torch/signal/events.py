@@ -16,8 +16,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from sigmap_tpu.config import EventDetectorConfig
-
+from ..config import EventDetectorConfig
 from .events_kernels import compress_keep, detect_peaks
 
 FLT_MIN = float(np.float32(1.1754944e-38))

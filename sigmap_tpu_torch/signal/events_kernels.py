@@ -13,9 +13,8 @@ from __future__ import annotations
 
 import torch
 
-from sigmap_tpu.config import EventDetectorConfig
-
 from .._build import LAUNCHES, check, kernels
+from ..config import EventDetectorConfig
 
 FLT_MAX = 3.4028234663852886e38  # float32 max, exactly representable
 

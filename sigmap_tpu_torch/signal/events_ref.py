@@ -1,10 +1,9 @@
 """Scalar numpy event detection for the ``events-to-text`` dump.
 
-JAX-free copies of the five ``sigmap_tpu/signal/events_ref.py`` functions
-that ``debug_modes.events_to_text`` uses: ``prefix_sums``,
-``tstat_centered``, ``detect_peaks``, ``events_from_peaks`` and ``zscore``,
-with the same arithmetic (the package ``sigmap_tpu.signal`` imports JAX in
-its ``__init__``, so the port cannot import the originals).  The dump does
+Copies of the five ``sigmap_tpu/signal/events_ref.py`` functions that
+``debug_modes.events_to_text`` uses: ``prefix_sums``, ``tstat_centered``,
+``detect_peaks``, ``events_from_peaks`` and ``zscore``, with the same
+arithmetic (the port imports nothing of the JAX package).  The dump does
 not go through the port's device event stages: they sum events by prefix
 differences in f32 and z-score in f32, while this reference sums each event
 with numpy's pairwise f32 ``sum`` and z-scores in f64, and the printed 6
@@ -17,7 +16,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from sigmap_tpu.config import EventDetectorConfig
+from ..config import EventDetectorConfig
 
 FLT_MAX = np.float32(3.4028235e38)
 FLT_MIN = np.float32(1.1754944e-38)

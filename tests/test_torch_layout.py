@@ -1,7 +1,9 @@
-"""Package layout of sigmap_tpu_torch: it never imports JAX (or h5py), and
+"""Package layout of sigmap_tpu_torch: it never imports JAX, h5py or
+anything of the JAX package ``sigmap_tpu`` (nor does chip_smoke.py), and
 its entry points that need a GPU fail without one instead of running
 something else."""
 
+import ast
 import os
 import subprocess
 import sys
@@ -19,12 +21,19 @@ MODULES = [
     "sigmap_tpu_torch.mapping.turbo", "sigmap_tpu_torch.mapping.records",
     "sigmap_tpu_torch.ops.sdtw_kernel", "sigmap_tpu_torch.signal.events_ref",
     "sigmap_tpu_torch.debug_modes", "sigmap_tpu_torch.mapping.seeding",
-    "sigmap_tpu_torch.mapping.driver",
+    "sigmap_tpu_torch.mapping.driver", "sigmap_tpu_torch.config",
+    "sigmap_tpu_torch.utils", "sigmap_tpu_torch.native",
+    "sigmap_tpu_torch.synth", "sigmap_tpu_torch.io.fasta",
+    "sigmap_tpu_torch.io.paf", "sigmap_tpu_torch.io.pore_model",
+    "sigmap_tpu_torch.io.signals", "sigmap_tpu_torch.io.slow5",
+    "sigmap_tpu_torch.io.fast5", "sigmap_tpu_torch.index.build",
+    "sigmap_tpu_torch.index.sweep", "sigmap_tpu_torch.mapping.chain",
+    "sigmap_tpu_torch.ops.cwt",
 ]
 
 BLOCKER = """
 import importlib, importlib.abc, sys
-BLOCKED = ("jax", "jaxlib", "h5py")
+BLOCKED = ("jax", "jaxlib", "h5py", "sigmap_tpu")
 class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
         if name.split(".")[0] in BLOCKED:
@@ -64,8 +73,25 @@ def test_modules_list_is_complete():
                 found.add(mod[: -len(".__init__")] if mod.endswith(
                     ".__init__") else mod)
     subpkgs = {"sigmap_tpu_torch.signal", "sigmap_tpu_torch.ops",
-               "sigmap_tpu_torch.mapping"}
+               "sigmap_tpu_torch.mapping", "sigmap_tpu_torch.io",
+               "sigmap_tpu_torch.index"}
     assert found - subpkgs == set(MODULES)
+
+
+def test_chip_smoke_imports_nothing_of_the_jax_package():
+    """chip_smoke.py imports sigmap_tpu_torch, torch, numpy and the stdlib:
+    no import statement anywhere in it names sigmap_tpu or jax."""
+    with open(os.path.join(ROOT, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names.append(node.module or "")
+    roots = {n.split(".")[0] for n in names}
+    assert "sigmap_tpu_torch" in roots
+    assert not roots & {"sigmap_tpu", "jax", "jaxlib", "h5py"}, roots
 
 
 @pytest.mark.parametrize("flags", [
