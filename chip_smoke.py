@@ -14,7 +14,10 @@
    drains, and its time at radius 0, where nothing matches and nothing is
    drained) and adversarial blocks (ties, overflowing candidate lists,
    padding seeds; dims 1, 6 and 8), and prints its ptxas registers, stack
-   and spills;
+   and spills; B4 runs on round 1's anchors with round 0's carry, on round
+   0 (an empty carry, the ring filling up) and on adversarial reads (ties,
+   a wrapping ring, empty blocks), B1 also on adversarial rows (ragged
+   lengths, R and C off the kernel's tile sizes);
 4. drives the main path through the CLI (``-i`` then ``-m``) on a synthetic
    genome with BLOW5 (zlib) reads, scores the PAF against the simulation
    truth, and checks that every kernel of the path was launched;
@@ -24,7 +27,9 @@
    blocks longest first (the main path) and in cell-key order; reads/s,
    and under torch.profiler
    the device's busy time (union of its kernel, memcpy and memset
-   intervals) and idle share;
+   intervals) and idle share, and the gaps between device intervals (the
+   ten longest, the stretches before the first and after the last interval
+   among them) with the host ops that ran in each;
 6. the debug modes and B5: B5 == plain at bench.py's DTW shape and on the
    debug path's own full-width inputs (a 48,502-base reference, 64 reads of
    3000 bases), then ``--debug-mode dtw-align`` and ``cwt-align`` through
@@ -98,7 +103,12 @@ BYTES_PER_S = 3.35e12
 SWEEP_COMPARES_PER_PAIR = 1  # B3: the one radius compare
 PEAKS_OPS_PER_STEP = 40      # B1: two detector steps of ~20 ops per sample
 KEEP_OPS_PER_EVENT = 4       # B2: sub, abs, compare, select per event
-CHAIN_OPS_PER_SLOT = 25      # B4: one ring-slot test (the division as one)
+# B4: a ring-slot test that the slot's g or its target gap refuses needs
+# the g compare, the target difference and its range compare; one that
+# passes both needs the whole chain (the other gates, the division as one
+# op, the score and the running maximum)
+CHAIN_OPS_PER_REFUSAL = 3
+CHAIN_OPS_PER_SLOT = 25
 SDTW_OPS_PER_CELL = 5        # B5: sub, abs, two mins, add per cell
 SEED_PAD = 2.0e9             # mapping/sweep_search.py:SEED_PAD
 
@@ -124,13 +134,185 @@ def keep_work(R, E):
     return R * E * KEEP_OPS_PER_EVENT, R * E * 8 + R * 4
 
 
-def chain_work(a_g, ring, B):
-    """B4: every valid new anchor tests the RING ring slots; the anchors,
-    the carry and the carry-out rings, the summaries."""
-    A = a_g.shape[0]
-    n_valid = int((a_g[ring:] >= 0).sum())
-    return (n_valid * ring * CHAIN_OPS_PER_SLOT,
-            A * B * 16 + ring * B * 4 * (5 + 8) + B * 16 * 4)
+def chain_counts(a_t, a_g, CARRY, ring, kb, max_tgap):
+    """What B4's DP has to do on anchors `a_t`, `a_g` [A, B] (rows
+    0..CARRY-1 carried), whatever implements it: the valid new anchors, the
+    most of them in one read, and the ring-slot tests against the *filled*
+    part of the ring: a valid new anchor tests min(valid rows pushed before
+    its kb-row block, ring) slots (an unfilled slot can never pass).
+    `window_pairs` are the tests that the first two gates let through: the
+    slot holds the anchor's g and a target 1..max_tgap positions before the
+    anchor's; every other test is refused by those gates alone.
+    `slot_tests_all_slots` is the earlier count, every valid new anchor
+    against all `ring` slots."""
+    import torch
+
+    A, B = a_g.shape
+    valid = a_g >= 0
+    v = valid.long()
+    vb = v[CARRY:].reshape(-1, kb, B).sum(dim=1)          # [blocks, B]
+    before = v[:CARRY].sum(dim=0)[None, :] + vb.cumsum(dim=0) - vb
+    per_read = vb.sum(dim=0)
+    n_valid = int(per_read.sum())
+    # The ring at a block's start holds the last `ring` valid rows before
+    # the block.  With each read's valid rows moved to the front in row
+    # order, the slots that row i tests are the ranks [before - ring,
+    # before) of its read.
+    reads = torch.nonzero(per_read > 0)[:, 0]
+    n = int(v.sum(dim=0).max()) if B else 0
+    order = torch.argsort((~valid[:, reads]).to(torch.int8), dim=0,
+                          stable=True)[:n]                # [n, reads]
+    t = torch.gather(a_t[:, reads], 0, order).t().contiguous()
+    g = torch.gather(a_g[:, reads], 0, order).t().contiguous()
+    new = (order >= CARRY) & (g.t() >= 0)
+    blk = (order - CARRY).clamp(min=0) // kb
+    hi = torch.where(new, torch.gather(before[:, reads], 0, blk), 0).t()
+    rank = torch.arange(n, device=a_g.device)[None, None, :]
+    pairs = 0
+    step = max(1, (1 << 26) // max(1, n * n))             # reads a pass
+    for c in range(0, reads.numel(), step):
+        h = hi[c:c + step, :, None]                       # [reads, i, 1]
+        d = t[c:c + step, :, None] - t[c:c + step, None, :]
+        ok = ((rank < h) & (rank >= h - ring) & (d > 0) & (d <= max_tgap)
+              & (g[c:c + step, :, None] == g[c:c + step, None, :]))
+        pairs += int(ok.sum())
+    return dict(valid_new_anchors=n_valid,
+                longest_read_valid_anchors=int(per_read.max()) if B else 0,
+                slot_tests=int((vb * before.clamp(max=ring)).sum()),
+                window_pairs=pairs,
+                slot_tests_all_slots=n_valid * ring)
+
+
+def chain_work(counts, A, B, CARRY, ring):
+    """B4's (operations, bytes) from chain_counts' `counts`: every
+    filled-slot test costs the refusal, a test that the g and target-gap
+    gates let through the rest of a whole test as well; the anchors and
+    the carry in, the carry-out rings and the summaries out."""
+    return (counts["slot_tests"] * CHAIN_OPS_PER_REFUSAL
+            + counts["window_pairs"]
+            * (CHAIN_OPS_PER_SLOT - CHAIN_OPS_PER_REFUSAL),
+            A * B * 16 + CARRY * B * 4 * 5 + ring * B * 4 * 8 + B * 16 * 4)
+
+
+def chain_adversarial(seed=0):
+    """B4 inputs (numpy: the nine arrays of chain_fused, and radius, dim,
+    ring) for B = 8 reads, CARRY = RING = 16 and 64 new rows, one read a
+    rule; the new rows tile by kb = 1, 4 and 8:
+    0 two ring slots give one new anchor equal candidate scores (the lowest
+      slot must win: the slots carry different chain starts);
+    1 every row valid on one diagonal: more than RING valid rows, so the
+      ring wraps inside the call;
+    2 aligned runs of 8 valid rows with one g and one q, as a seed's K
+      matches are, between runs of invalid rows;
+    3 only invalid blocks but the last;
+    4 an empty carry;
+    5 no valid row at all;
+    6 three identical chains on three references: chains 1, 2 and 3 tie;
+    7 random anchors and a half-filled carry.
+    Distances are 0 in reads 0-6, so every score there is a whole number
+    and ties are exact in any float type."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    B, RING, N = 8, 16, 64
+    A = RING + N
+    a_t = np.zeros((A, B), np.int32)
+    a_q = np.zeros((A, B), np.int32)
+    a_d = np.zeros((A, B), np.float32)
+    a_g = np.full((A, B), -1, np.int32)
+    c_score = np.zeros((RING, B), np.float32)
+    c_stt = np.zeros((RING, B), np.int32)
+    c_stq = np.zeros((RING, B), np.int32)
+    c_n = np.zeros((RING, B), np.int32)
+    c_sumd = np.zeros((RING, B), np.float32)
+    new = np.arange(RING, A)
+
+    def carried(b, rows, t, q, g, score):
+        a_t[rows, b], a_q[rows, b], a_g[rows, b] = t, q, g
+        c_score[rows, b], c_n[rows, b] = score, 3
+        c_stt[rows, b] = t - 10 - np.arange(len(rows))   # distinct starts
+        c_stq[rows, b] = q - 10
+
+    # 0: carried slots 0 and 1 at one (t, q) with one score
+    carried(0, np.array([0, 1]), 100, 10, 0, 7.0)
+    a_t[new[:3], 0], a_q[new[:3], 0], a_g[new[:3], 0] = 110, 20, 0
+    # 1: a full carry and every new row valid, one diagonal
+    carried(1, np.arange(RING), 1000 + 3 * np.arange(RING),
+            3 * np.arange(RING), 2, 6.0 + np.arange(RING))
+    a_q[new, 1] = 3 * RING + 3 * np.arange(N)
+    a_t[new, 1] = 1000 + a_q[new, 1]
+    a_g[new, 1] = 2
+    # 2: every other run of 8 rows valid, one g and one q a run
+    carried(2, np.arange(4), 500 + 2 * np.arange(4), 2 * np.arange(4), 1, 6.0)
+    for r in range(0, N, 16):
+        rows = new[r:r + 8]
+        a_q[rows, 2] = 20 + r
+        a_t[rows, 2] = 520 + r + np.arange(8) * 2
+        a_g[rows, 2] = 1
+    # 3: invalid blocks, then one valid block
+    carried(3, np.arange(3), 300 + 5 * np.arange(3), 5 * np.arange(3), 0, 6.0)
+    a_q[new[-8:], 3] = 40
+    a_t[new[-8:], 3] = 340 + np.arange(8)
+    a_g[new[-8:], 3] = 0
+    # 4: an empty carry, new rows on a diagonal with gaps
+    rows = new[::3]
+    a_q[rows, 4] = 4 * np.arange(len(rows))
+    a_t[rows, 4] = 9000 + a_q[rows, 4]
+    a_g[rows, 4] = 3
+    # 6: the same chain on references 0, 1 and 2 (g = 2 * reference)
+    for j, g in enumerate((0, 2, 4)):
+        rows = new[j::4][:12]
+        a_q[rows, 6] = 5 * np.arange(12)
+        a_t[rows, 6] = 2000 + a_q[rows, 6]
+        a_g[rows, 6] = g
+    # 7: random, clustered on four diagonals
+    keep = rng.random(A) < 0.7
+    rows = np.nonzero(keep)[0]
+    g7 = rng.integers(0, 4, len(rows))
+    q7 = np.sort(rng.integers(0, 120, len(rows)))
+    a_q[rows, 7] = q7
+    a_t[rows, 7] = np.array([700, 2500, 4100, 700])[g7] + 2 * q7 \
+        + rng.integers(-3, 4, len(rows))
+    a_g[rows, 7] = g7
+    a_d[rows, 7] = rng.random(len(rows)) * 0.08
+    c_score[:, 7] = rng.random(RING) * 20
+    c_stt[:, 7] = rng.integers(0, 4000, RING)
+    c_stq[:, 7] = rng.integers(0, 50, RING)
+    c_n[:, 7] = rng.integers(1, 20, RING)
+    c_sumd[:, 7] = rng.random(RING)
+    return ((a_t, a_q, a_d, a_g, c_score, c_stt, c_stq, c_n, c_sumd),
+            dict(radius=0.08, dim=6, ring=RING))
+
+
+def peaks_adversarial(seed=0):
+    """B1 inputs (numpy: t1, t2 [R, C] f32, lengths [R] i32) with R = 70
+    rows (two full warps of rows and 6) and C = 201 steps (three tiles of 64
+    and 9; no multiple of 4, so the wrapper pads the rows for the kernel's
+    16-byte copies, while the first 200 columns alone go in as they are):
+    rows of length 0,
+    shorter than twice the long window, of full length, and random lengths;
+    t-statistics with peaks of random height over a noisy floor.  Row 3
+    holds a short-detector peak at steps 61-63 that masks the long detector
+    (until step 63 + w1) across the tile boundary at step 64, where the long
+    detector's own peak stands."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    R, C = 70, 201
+    t1 = np.abs(rng.normal(0, 1.2, (R, C))).astype(np.float32)
+    t2 = np.abs(rng.normal(0, 1.0, (R, C))).astype(np.float32)
+    for t, every in ((t1, 9), (t2, 17)):
+        for r in range(R):
+            at = np.arange(int(rng.integers(2, every)), C, every)
+            t[r, at] += rng.random(len(at)).astype(np.float32) * 9
+    lengths = rng.integers(0, C + 1, R).astype(np.int32)
+    lengths[:8] = (0, 5, 11, C, C, 1, 64, 65)
+    lengths[32], lengths[69] = C, C
+    t1[3, 50:80] = 0.25
+    t2[3, 50:80] = 0.25
+    t1[3, 60:64] = (2.0, 5.5, 8.0, 3.0)
+    t2[3, 61:68] = (1.0, 2.0, 4.0, 6.0, 4.5, 2.0, 0.5)
+    return t1, t2, lengths
 
 
 def sdtw_work(t_len, q_len, T, Q):
@@ -361,6 +543,7 @@ def compare_kernels(map_args, records, dev):
     import numpy as np
     import torch
 
+    from sigmap_tpu_torch import _build
     from sigmap_tpu_torch.mapping import turbo as T
     from sigmap_tpu_torch.ops import chain_fused as CF
     from sigmap_tpu_torch.ops import sweep_kernel as SK
@@ -375,7 +558,30 @@ def compare_kernels(map_args, records, dev):
     check(records, "peaks", f"R={B * NC} C={Cs}", (fs.emits,),
           lambda: (EK.detect_peaks(fs.t1, fs.t2, clen, ec),),
           lambda: (EK.detect_peaks_plain(fs.t1, fs.t2, clen, ec),),
-          work=peaks_work(B * NC, Cs))
+          plain_reps=0, work=peaks_work(B * NC, Cs))
+    copies = sum(not (x.is_contiguous() and x.dtype == torch.float32)
+                 for x in (fs.t1, fs.t2))
+    records["peaks"].update(wrapper_layout_copies=copies,
+                            ptxas=ptxas_summary("events"))
+    log(f"peaks wrapper: {copies} layout copies on the main path's rows (the "
+        f"kernel reads [R, C] and writes [R, 2C] as they are, so the time "
+        f"above holds no layout work); ptxas: {records['peaks']['ptxas']}")
+    a1, a2, a_len = (torch.from_numpy(a).to(dev) for a in peaks_adversarial())
+    for C_adv, sub in ((a1.shape[1], "adversarial"),
+                       (a1.shape[1] // 4 * 4, "adversarial_unpadded")):
+        b1, b2 = a1[:, :C_adv].contiguous(), a2[:, :C_adv].contiguous()
+        b_len = a_len.clamp(max=C_adv)
+        check(records, "peaks", f"adversarial R={b1.shape[0]} C={C_adv}",
+              (EK.detect_peaks(b1, b2, b_len, ec),),
+              lambda: (EK.detect_peaks(b1, b2, b_len, ec),),
+              lambda: (EK.detect_peaks_plain(b1, b2, b_len, ec),),
+              sub=sub, work=peaks_work(*b1.shape))
+    # the last rows again as a contiguous view 4 bytes off a 16-byte boundary
+    off = torch.cat([b1.new_zeros(1), b1.reshape(-1)])[1:].view(b1.shape)
+    assert off.data_ptr() % 16 and off.is_contiguous()
+    assert torch.equal(EK.detect_peaks(off, b2, b_len, ec),
+                       EK.detect_peaks(b1, b2, b_len, ec)), \
+        "B1 disagrees on a view off a 16-byte boundary"
     check(records, "compress_keep", f"R={B * NC} E={p.max_events}",
           (fs.keep,),
           lambda: (EK.compress_keep(fs.norm, fs.num_events, delta),),
@@ -410,7 +616,7 @@ def compare_kernels(map_args, records, dev):
                 lambda: SK.sweep_search(sub_seeds, sub_bm, s.tiles, s.meta,
                                         **kw),
                 lambda: SK.sweep_search_plain(sub_seeds, sub_bm, s.tiles,
-                                              s.meta, **kw), plain_reps=1)
+                                              s.meta, **kw), plain_reps=0)
     rec.update(sweep_work(sub_bm, p.TILE, p.block, idx.dim, p.K)[1])
     rec.update(ms_full_round=ms_full, ms_full_round_no_match=ms_no_match,
                pair_evals_full_round=pairs, overflow_full_round=int(ovf),
@@ -447,33 +653,76 @@ def compare_kernels(map_args, records, dev):
     rec["ptxas"] = ptxas_summary("sweep")
     log(f"sweep ptxas: {rec['ptxas']}")
 
-    # --- B4 on round 1's anchors and round 0's carry ------------------------
-    st, _, _ = T.turbo_round(
-        s, feats[:, 0], counts[:, 0], n_full, st, p, m.step_size,
-        m.search_radius, idx.dim, cfg.chain, m)
-    r1 = 1 % NC
-    ra = T.round_anchors(s, feats[:, r1], counts[:, r1], n_full, st, p,
-                         m.step_size, m.search_radius, idx.dim, m)
-    c = [x.contiguous() for x in st.carry[3:]]
+    # --- B4: round 0 (empty carry), round 1 on round 0's carry, adversarial --
     ckw = dict(radius=m.search_radius, dim=idx.dim, ring=p.RING,
                cfg=cfg.chain, kb=p.K)
-    args4 = (ra.a_t, ra.a_q, ra.a_d, ra.a_g, *c)
 
     def flat(out):      # (sum_f, sum_i, carry ring arrays) -> one tuple
         return (out[0], out[1], *out[2])
 
-    check(records, "chain_fused",
-          f"A={ra.a_t.shape[0]} B={B} RING={p.RING} kb={p.K}",
-          flat(CF.chain_fused(*args4, **ckw)),
-          lambda: CF.chain_fused(*args4, **ckw),
-          lambda: flat(CF.chain_fused_plain(*args4, **ckw)),
-          work=chain_work(ra.a_g, p.RING, B))
+    def chain_case(shape, args4, kw, sub=None):
+        A, B = args4[3].shape
+        CARRY = args4[4].shape[0]
+        cc = chain_counts(args4[0], args4[3], CARRY, kw["ring"], kw["kb"],
+                          kw["cfg"].max_target_gap_length)
+        ops, nbytes = chain_work(cc, A, B, CARRY, kw["ring"])
+        assert (CF.shared_memory_bytes(A, CARRY, kw["ring"], kw["kb"])
+                == _build.kernels().sig_chain_fused_smem(
+                    A, CARRY, kw["ring"], kw["kb"])), "B4 shared-memory twin"
+        rec = check(records, "chain_fused", shape,
+                    flat(CF.chain_fused(*args4, **kw)),
+                    lambda: CF.chain_fused(*args4, **kw),
+                    lambda: flat(CF.chain_fused_plain(*args4, **kw)),
+                    sub=sub, work=(ops, nbytes))
+        # the earlier counts, so that earlier runs' bounds stay comparable:
+        # a whole test for every filled slot, and for all RING slots
+        rec.update(cc, **{
+            f"bound_ms_whole_test_{k}": bound(
+                cc[c] * CHAIN_OPS_PER_SLOT, nbytes)["bound_ms"]
+            for k, c in (("filled_slots", "slot_tests"),
+                         ("all_slots", "slot_tests_all_slots"))})
+        log(f"chain_fused {shape}: {cc}; bound {rec['bound_ms']:.4f} ms "
+            f"({rec['bound_by']}; {CHAIN_OPS_PER_REFUSAL} ops a refused test, "
+            f"{CHAIN_OPS_PER_SLOT} a test in the anchor's target window) = "
+            f"{100 * rec['bound_ms'] / rec['ms']:.1f}% of bound; at "
+            f"{CHAIN_OPS_PER_SLOT} ops for every filled slot "
+            f"{rec['bound_ms_whole_test_filled_slots']:.4f} ms, for all RING "
+            f"slots {rec['bound_ms_whole_test_all_slots']:.4f} ms")
+        return rec
+
+    def round_args(st, r):
+        ra = T.round_anchors(s, feats[:, r], counts[:, r], n_full, st, p,
+                             m.step_size, m.search_radius, idx.dim, m)
+        return (ra.a_t, ra.a_q, ra.a_d, ra.a_g,
+                *(x.contiguous() for x in st.carry[3:]))
+
+    args0 = round_args(st, 0)
+    A = args0[0].shape[0]
+    chain_case(f"round 0 A={A} B={B} RING={p.RING} kb={p.K}", args0, ckw,
+               sub="round0")
+    st, _, _ = T.turbo_round(
+        s, feats[:, 0], counts[:, 0], n_full, st, p, m.step_size,
+        m.search_radius, idx.dim, cfg.chain, m)
+    args1 = round_args(st, 1 % NC)
+    rec = chain_case(f"A={A} B={B} RING={p.RING} kb={p.K}", args1, ckw)
+    rec.update(smem_bytes_per_read=CF.shared_memory_bytes(
+                   A, p.RING, p.RING, p.K),
+               ptxas=ptxas_summary("chain_fused"))
+    log(f"chain_fused: {rec['smem_bytes_per_read']} B shared memory a read; "
+        f"ptxas: {rec['ptxas']}")
+    adv_args, adv_kw = chain_adversarial()
+    adv_args = tuple(torch.from_numpy(a).to(dev) for a in adv_args)
+    for kb in (1, 4, 8):
+        chain_case(f"adversarial B=8 RING=16 kb={kb}", adv_args,
+                   dict(adv_kw, cfg=cfg.chain, kb=kb),
+                   sub=f"adversarial_kb{kb}")
     return mapper, signals
 
 
 def ptxas_summary(stem):
-    """{kernel instantiation: 'N registers, N bytes stack, N bytes spill
-    stores, N bytes spill loads'} from the build's ptxas -v output."""
+    """{kernel instantiation: 'N registers, N bytes static shared memory, N
+    bytes stack, N bytes spill stores, N bytes spill loads'} from the
+    build's ptxas -v output."""
     from sigmap_tpu_torch import _build
 
     out, fn = {}, None
@@ -487,9 +736,11 @@ def ptxas_summary(stem):
         if m and fn:
             out[fn] += (f"{m.group(1)} B stack, {m.group(2)} B spill stores, "
                         f"{m.group(3)} B spill loads; ")
-        m = re.search(r"Used (\d+) registers", line)
+        m = re.search(r"Used (\d+) registers(?:, (\d+) bytes smem)?", line)
         if m and fn:
             out[fn] += f"{m.group(1)} registers; "
+            if m.group(2):
+                out[fn] += f"{m.group(2)} B static shared memory; "
         m = re.search(r"(\d+) bytes lmem", line)
         if m and fn:
             out[fn] += f"{m.group(1)} B lmem; "
@@ -512,6 +763,70 @@ def device_busy(trace_path):
         ms, n = by_name.get(e["name"], (0.0, 0))
         by_name[e["name"]] = (ms + e["dur"] / 1000, n + 1)
     return busy / 1000, by_name
+
+
+def host_gaps(trace_path, top=10):
+    """Where the device waits in a chrome trace: the gaps between device
+    intervals (kernel, memcpy, memset; overlapping intervals merged), with
+    the stretch before the first interval and the one after the last (the
+    window runs from the first to the last event of the trace, the
+    profiler's own span among them).  Returns
+    the number of gaps, their sum, the host ops (torch.profiler CPU ops and
+    CUDA runtime calls; nested ops each count, so they overlap) by the time
+    they ran inside any gap, and the `top` longest gaps: for each its
+    length, the device work on either side, its three longest host ops, and
+    the share of the gap in which any such op ran (the rest is Python or
+    native host code between ops)."""
+    import bisect
+
+    with open(trace_path) as f:
+        ev = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    dev = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in ev
+                 if e.get("cat") in DEVICE_CATS)
+    host = [(e["ts"], e["ts"] + e["dur"], e["name"]) for e in ev
+            if e.get("cat") in ("cpu_op", "cuda_runtime")]
+    t0 = min(e["ts"] for e in ev)
+    t1 = max(e["ts"] + e["dur"] for e in ev)
+    gaps, end, last = [], t0, "(start of the pass)"
+    for a, b, name in dev + [(t1, t1, "(end of the pass)")]:
+        if a > end:
+            gaps.append((end, a, last, name))
+        if b > end:
+            end, last = b, name
+    starts = [g[0] for g in gaps]
+    per_gap = [[] for _ in gaps]          # (lo, hi, name) clipped to the gap
+    for a, b, name in host:
+        i = max(bisect.bisect_right(starts, a) - 1, 0)
+        while i < len(gaps) and gaps[i][0] < b:
+            lo, hi = max(a, gaps[i][0]), min(b, gaps[i][1])
+            if hi > lo:
+                per_gap[i].append((lo, hi, name))
+            i += 1
+    all_ops: dict = {}
+    for spans in per_gap:
+        for lo, hi, name in spans:
+            all_ops[name] = all_ops.get(name, 0.0) + (hi - lo)
+    out = []
+    order = sorted(range(len(gaps)), key=lambda i: gaps[i][0] - gaps[i][1])
+    for i in order[:top]:
+        g0, g1, before, after = gaps[i]
+        by_op: dict = {}
+        covered, e0 = 0.0, g0
+        for lo, hi, name in sorted(per_gap[i]):
+            by_op[name] = by_op.get(name, 0.0) + (hi - lo)
+            if hi > e0:
+                covered += hi - max(lo, e0)
+                e0 = hi
+        ops = sorted(by_op.items(), key=lambda kv: -kv[1])[:3]
+        out.append(dict(gap_ms=(g1 - g0) / 1000, after=before[:60],
+                        before=after[:60],
+                        host_ops=[(n[:60], t / 1000) for n, t in ops],
+                        host_op_share=covered / (g1 - g0)))
+    return dict(
+        n_gaps=len(gaps), gap_ms=sum(b - a for a, b, _, _ in gaps) / 1000,
+        host_ops=[(n[:60], t / 1000) for n, t in
+                  sorted(all_ops.items(), key=lambda kv: -kv[1])[:top]],
+        longest=out)
 
 
 @contextlib.contextmanager
@@ -594,27 +909,56 @@ def profile_warm(mapper, signals, work):
         f"B3 {tot[2]:.3f} ms longest first, {tot[3]:.3f} ms in cell-key "
         f"order")
     del inputs
-    t0 = time.perf_counter()
-    mapper.streaming_map(signals)
-    torch.cuda.synchronize()
-    warm_s = time.perf_counter() - t0
+    warm = []                # three passes: the spread of a host-bound time
+    for _ in range(3):
+        t0 = time.perf_counter()
+        mapper.streaming_map(signals)
+        torch.cuda.synchronize()
+        warm.append(time.perf_counter() - t0)
+    warm_s = statistics.median(warm)
+    # the pass ends by waiting for the reads that the host's exact engine
+    # re-maps (no torch op runs meanwhile): time that wait in the profiled
+    # pass, so that the stretch after the last device interval has a name
+    drain, drain_s = mapper._drain_rescues, []
+
+    def timed_drain(records, n):
+        t0 = time.perf_counter()
+        out = drain(records, n)
+        drain_s.append(time.perf_counter() - t0)
+        return out
+
+    mapper._drain_rescues = timed_drain
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         mapper.streaming_map(signals)
         torch.cuda.synchronize()
         prof_s = time.perf_counter() - t0
+    mapper._drain_rescues = drain
     trace = os.path.join(work, "warm_trace.json")
     prof.export_chrome_trace(trace)
     busy_ms, by_name = device_busy(trace)
     n = len(signals)
     log(f"warm: rescue oracle build {oracle_s:.3f} s; streaming_map of {n} "
-        f"reads {warm_s:.3f} s = {n / warm_s:.3f} reads/s")
+        f"reads {warm_s:.3f} s = {n / warm_s:.3f} reads/s (the median of "
+        f"three passes: " + ", ".join(f"{n / w:.3f}" for w in warm) + ")")
     log(f"warm profile: wall {prof_s * 1000:.3f} ms, device busy "
         f"{busy_ms:.3f} ms, idle share {1 - busy_ms / (prof_s * 1000):.4f}")
+    log(f"warm profile: waiting for the rescued reads at the end of the "
+        f"pass {sum(drain_s) * 1000:.3f} ms")
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
     for name, (ms, cnt) in top:
         log(f"  device {ms:10.3f} ms {cnt:6d}x  {name[:70]}")
+    gaps = host_gaps(trace)
+    log("warm profile, device gaps: " + json.dumps(gaps))
+    log(f"  {gaps['n_gaps']} gaps, {gaps['gap_ms']:.3f} ms in all; host ops "
+        f"inside them (nested ops each count): " + ", ".join(
+            f"{n} {t:.3f} ms" for n, t in gaps["host_ops"]))
+    for g in gaps["longest"]:
+        log(f"  gap {g['gap_ms']:9.3f} ms after [{g['after']}] before "
+            f"[{g['before']}]: host ops " + ", ".join(
+                f"{n} {t:.3f} ms" for n, t in g["host_ops"])
+            + f"; ops cover {g['host_op_share']:.2f} of the gap")
 
 
 ALIGN_LINE = re.compile(

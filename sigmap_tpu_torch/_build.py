@@ -42,8 +42,14 @@ NVCC_FLAGS = (
 )
 
 # core.cc has no OpenMP code: no -fopenmp, which would only add a dependency
-# on the toolchain's libgomp, which a host may lack
-NATIVE_CXXFLAGS = "-O3 -march=native -fPIC -std=c++17 -Wall"
+# on the toolchain's libgomp, which a host may lack.  -ffp-contract=off: g++
+# otherwise contracts a*b+c into FMA wherever -march=native offers one, and
+# how often depends on the host and the compiler, so distances and chain
+# scores would round differently from host to host.  Without -ffast-math g++
+# does not reassociate, so with contraction off the vector width that
+# -march=native picks no longer changes a result: the core rounds op by op,
+# as the CUDA kernels do (-fmad=false above).
+NATIVE_CXXFLAGS = "-O3 -march=native -ffp-contract=off -fPIC -std=c++17 -Wall"
 
 LAUNCHES = {"peaks": 0, "compress_keep": 0, "sweep": 0, "chain_fused": 0,
             "sdtw": 0}
@@ -138,8 +144,10 @@ def _bind(lib: ctypes.CDLL) -> None:
     ]
     lib.sig_chain_fused_launch.restype = I
     lib.sig_chain_fused_launch.argtypes = (
-        [P] * 9 + [I] * 5 + [F, I, I, I, F, F] + [P] * 12 + [P]
+        [P] * 9 + [I] * 5 + [F, I, I, I, F, F] + [P] * 10 + [P]
     )
+    lib.sig_chain_fused_smem.restype = ctypes.c_longlong
+    lib.sig_chain_fused_smem.argtypes = [I, I, I, I]
     lib.sig_sdtw_launch.restype = I
     lib.sig_sdtw_launch.argtypes = [P, P, P, P, I, I, I, I, P, P, P, P]
 
@@ -150,13 +158,13 @@ def check(err: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
 
 
-def native_library() -> Path:
-    """csrc/core.cc compiled into the build directory (once per source and
-    flags hash); returns the library's path."""
-    src = CSRC / "core.cc"
-    out = BUILD_DIR / f"libsigmap_core_{_digest([src], (NATIVE_CXXFLAGS,))}.so"
+def native_library(src: Path = CSRC / "core.cc",
+                   build_dir: Path = BUILD_DIR) -> Path:
+    """`src` (csrc/core.cc) compiled with NATIVE_CXXFLAGS into `build_dir`
+    (once per source and flags hash); returns the library's path."""
+    out = build_dir / f"libsigmap_core_{_digest([src], (NATIVE_CXXFLAGS,))}.so"
     if not out.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        build_dir.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         r = subprocess.run(["g++", *NATIVE_CXXFLAGS.split(), "-shared", "-o",
                             str(tmp), str(src)], capture_output=True, text=True)

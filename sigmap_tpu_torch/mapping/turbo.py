@@ -33,7 +33,7 @@ from ..index.build import SignalIndex
 from ..index.sweep import META_POS_BITS, SweepIndex
 from ..io.paf import ChainsSummary, PAFRecord, streaming_tags
 from ..io.signals import ReadSignal
-from ..ops.chain_fused import chain_fused
+from ..ops.chain_fused import chain_fused, check_fits
 from ..signal.events import batch_generate_features
 from .sweep_search import SEED_PAD, sweep_round
 
@@ -57,6 +57,18 @@ class TurboParams:
     # reads that finish unmapped with a capacity overflow (matches past K
     # or seeds past S) are re-mapped through the exact host engine
     rescue: bool = True
+
+    def check(self, device) -> None:
+        """Raise ValueError for shapes the kernels of ``device`` cannot
+        take: on a GPU the fused chainer holds a read's RING + S * K anchor
+        rows in shared memory (at RING 768 and K 8, S * K <= 11,744)."""
+        if torch.device(device).type == "cuda":
+            try:
+                check_fits(self.RING + self.S * self.K, self.RING, self.RING,
+                           self.K)
+            except ValueError as e:
+                raise ValueError(f"TurboParams(S={self.S}, K={self.K}, "
+                                 f"RING={self.RING}): {e}") from None
 
 
 @dataclass
@@ -422,6 +434,7 @@ class TurboMapper:
         if index.win_group is None:
             index.derive_window_metadata()
         self.p = params if params is not None else TurboParams()
+        self.p.check(self.device)
         sw = SweepIndex.build_cached(
             index, config.mapping.search_radius, tile=self.p.TILE,
             cache_dir=config.runtime.sweep_cache_dir, materialize=True,
@@ -546,7 +559,8 @@ class TurboMapper:
                         "warning: turbo capacity overflow with rescue "
                         f"DISABLED [match={bool(ovf_h[0])} "
                         f"seeds={bool(ovf_h[1])}]; raise TurboParams.K / "
-                        "TurboParams.S or anchors are dropped",
+                        "TurboParams.S (TurboParams.check gives the GPU's "
+                        "limit on S * K) or anchors are dropped",
                         file=sys.stderr,
                     )
                     self._ovf_warned = True

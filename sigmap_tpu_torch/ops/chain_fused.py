@@ -4,7 +4,11 @@ CUDA source: ``sigmap_tpu_torch/csrc/chain_fused.cu``; it replaces
 ``sigmap_tpu/ops/chain_fused.py:_kernel`` (via ``chain_fused``).  The
 wrapper runs the plain version on a CPU tensor and launches the kernel on a
 CUDA tensor.  One launch covers every read: the reference's fixed-grid
-chunking (``FIXED_G``) has no counterpart.
+chunking (``FIXED_G``) has no counterpart.  The kernel keeps a read's anchor
+rows and ring in shared memory (16 B a row, 32 B a ring slot), so on a CUDA
+tensor a call whose read does not fit a block's ``SMEM_LIMIT`` bytes is
+refused (``check_fits``): at ring 768 and kb 8 that is more than 11,744
+new anchor rows beside the 768 carried ones.  The plain version takes any size.
 
 Layouts are the reference's: anchors [A, B] (rows 0..CARRY-1 carried,
 then qpos-major seed slots), carried chain state [CARRY, B], outputs
@@ -21,6 +25,34 @@ from .._build import LAUNCHES, check, kernels
 from ..config import ChainingConfig
 
 NEG = -1.0e30
+SMEM_LIMIT = 232_448   # shared memory a block can use on an H100 (227 KB)
+
+
+def shared_memory_bytes(A: int, CARRY: int, ring: int, kb: int) -> int:
+    """Dynamic shared memory the kernel's block (one read) needs: the twin
+    of ``smem_bytes`` in the CUDA source (``sig_chain_fused_smem``): the
+    ring's two 16-byte arrays, the four staged anchor fields, one mask a
+    kb-row block, and the fixed row, candidate and reduction buffers."""
+    return 32 * ring + 16 * A + 4 * ((A - CARRY) // kb + 1) + 1696
+
+
+def max_new_rows(CARRY: int, ring: int, kb: int) -> int:
+    """The most new anchor rows a read (a multiple of kb) the kernel can
+    hold beside ``CARRY`` carried rows and a ring of ``ring`` slots."""
+    room = SMEM_LIMIT - shared_memory_bytes(CARRY, CARRY, ring, kb)
+    return max(0, room * kb // (16 * kb + 4) // kb * kb)
+
+
+def check_fits(A: int, CARRY: int, ring: int, kb: int) -> None:
+    """Raise ValueError if the kernel cannot hold a read of ``A`` anchor
+    rows (``CARRY`` of them carried) and a ring of ``ring`` slots."""
+    need = shared_memory_bytes(A, CARRY, ring, kb)
+    if need > SMEM_LIMIT:
+        raise ValueError(
+            f"chain_fused: {A} anchor rows a read and a ring of {ring} need "
+            f"{need} bytes of shared memory on the GPU, a block has "
+            f"{SMEM_LIMIT}: at most {max_new_rows(CARRY, ring, kb)} new rows "
+            f"fit beside this ring and {CARRY} carried rows")
 
 
 def _push(ring, cur, vals, v, RING: int):
@@ -180,20 +212,18 @@ def chain_fused(a_t, a_q, a_d, a_g, c_score, c_stt, c_stq, c_n, c_sumd,
                 or x.device != dev):
             raise ValueError("chain_fused: inputs must be contiguous [rows, B]"
                              " i32/f32 tensors on one device")
+    check_fits(A, CARRY, ring, kb)
+    lib = kernels()
     f32, i32 = torch.float32, torch.int32
     sum_f = torch.empty((8, B), dtype=f32, device=dev)
     sum_i = torch.empty((8, B), dtype=i32, device=dev)
     outs = [torch.empty((ring, B), dtype=dt, device=dev)
             for dt in (i32, i32, i32, f32, i32, i32, i32, f32)]
-    scores = torch.empty((A, B), dtype=f32, device=dev)
-    stt_s = torch.empty((A, B), dtype=i32, device=dev)
-    lib = kernels()
     err = lib.sig_chain_fused_launch(
         *(x.data_ptr() for x, _, _ in ins), A, B, CARRY, ring, kb,
         float(radius), dim, cfg.max_gap_length, cfg.max_target_gap_length,
         float(cfg.max_gap_scale), float(cfg.min_gap_scale),
         sum_f.data_ptr(), sum_i.data_ptr(), *(o.data_ptr() for o in outs),
-        scores.data_ptr(), stt_s.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     check(err, "chain_fused")

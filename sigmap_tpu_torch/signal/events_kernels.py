@@ -86,20 +86,32 @@ def detect_peaks(tstat1, tstat2, lengths, cfg: EventDetectorConfig):
     R, C = tstat1.shape
     if tstat2.shape != (R, C) or lengths.shape != (R,):
         raise ValueError("detect_peaks: shape mismatch")
-    t1 = tstat1.to(torch.float32).t().contiguous()    # [C, R]
-    t2 = tstat2.to(torch.float32).t().contiguous()
-    lens = lengths.to(torch.int32).contiguous()
-    out = torch.empty((C, R, 2), dtype=torch.int32, device=dev)
+    # the kernel reads [R, C] and writes [R, 2C] as they are: no transpose.
+    # Its copies are 16 bytes each: rows of another length are padded to a
+    # multiple of 4 steps (never active: the lengths stop at C), and a view
+    # that starts off a 16-byte boundary is copied
+    pad = -C % 4
+    lens = lengths.to(torch.int32).clamp(max=C).contiguous()
+
+    def rows(x):
+        x = x.to(torch.float32)
+        if pad:
+            return torch.nn.functional.pad(x, (0, pad))
+        x = x.contiguous()
+        return x if x.data_ptr() % 16 == 0 else x.clone()
+
+    t1, t2 = rows(tstat1), rows(tstat2)
+    out = torch.empty((R, 2 * (C + pad)), dtype=torch.int32, device=dev)
     lib = kernels()
     err = lib.sig_peaks_launch(
-        t1.data_ptr(), t2.data_ptr(), lens.data_ptr(), R, C,
+        t1.data_ptr(), t2.data_ptr(), lens.data_ptr(), R, C + pad,
         cfg.window_length1, cfg.window_length2, float(cfg.threshold1),
         float(cfg.threshold2), float(cfg.peak_height), out.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     check(err, "peaks")
     LAUNCHES["peaks"] += 1
-    return out.permute(1, 0, 2).reshape(R, 2 * C)
+    return out[:, :2 * C].contiguous() if pad else out
 
 
 def compress_keep_plain(norm, n, delta: float):

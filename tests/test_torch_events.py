@@ -11,6 +11,9 @@ inputs is a few f32 ulps of the z-scored features, and counts match on
 every row.
 """
 
+import os
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -25,6 +28,9 @@ from sigmap_tpu.signal.events_pallas import (
 from sigmap_tpu_torch.signal import events as tev
 from sigmap_tpu_torch.signal import events_kernels as tk
 from _torch_util import cuda_device  # noqa: F401 - fixture
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+from chip_smoke import peaks_adversarial  # noqa: E402
 
 TSTAT_RTOL = 1e-5       # |port - jax| / (|jax| + 1) for the t-statistics
 FEAT_ATOL = 1e-5        # features are z-scores of order 1
@@ -71,6 +77,39 @@ def test_peaks_plain_matches_pallas_and_scan(case):
     np.testing.assert_array_equal(port, scan)
     np.testing.assert_array_equal(port, pal)
     assert port.any(), "inputs produced no peaks"
+
+
+def test_peaks_plain_matches_scan_on_adversarial_rows():
+    """chip_smoke.py's adversarial rows (lengths 0, below two windows and
+    full; R off a warp's 32 rows, C off the kernel's 64-step tile and no
+    multiple of 4; a short peak masking the long detector across a tile
+    boundary) against the JAX package's scan and its Pallas kernel in
+    interpret mode, exactly."""
+    t1, t2, lengths = peaks_adversarial(0)
+    cfg = EventDetectorConfig()
+    R, C = t1.shape
+    assert R % 32 and C % 64 and C % 4
+    assert {0, 5, 11, C} <= set(lengths.tolist())
+    scan = np.asarray(
+        jev.detect_peaks_batch(t1, t2, jnp.asarray(lengths), cfg))
+    pal = np.asarray(detect_peaks_pallas(t1, t2, jnp.asarray(lengths), cfg,
+                                         interpret=True))
+    port = tk.detect_peaks(torch.from_numpy(t1), torch.from_numpy(t2),
+                           torch.from_numpy(lengths), cfg).numpy()
+    np.testing.assert_array_equal(port, scan)
+    np.testing.assert_array_equal(port, pal)
+    assert (port[lengths == 0] == 0).all()
+    # row 3: the short detector emits its peak at step 62 (position + 1)
+    # in the first tile and the long detector, masked until step 65, emits
+    # nothing before step 70
+    short, long_ = port[3, 0::2], port[3, 1::2]
+    assert 63 in short[60:70] and not long_[58:70].any()
+    # the same row with the short peak flattened: the long detector fires
+    flat = t1.copy()
+    flat[3, 60:64] = 0.25
+    free = tk.detect_peaks(torch.from_numpy(flat), torch.from_numpy(t2),
+                           torch.from_numpy(lengths), cfg).numpy()
+    assert free[3, 1::2][58:70].any()
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
@@ -147,6 +186,17 @@ def test_event_kernels_match_plain_on_gpu(cuda_device):
     t2 = tev.batch_tstat(x, n, cfg.window_length2)
     assert torch.equal(tk.detect_peaks(t1, t2, n, cfg),
                        tk.detect_peaks_plain(t1, t2, n, cfg))
+    a1, a2, a_len = (torch.from_numpy(a).to(cuda_device)
+                     for a in peaks_adversarial(0))
+    for C in (a1.shape[1], a1.shape[1] // 4 * 4):   # padded rows, and as is
+        b1, b2 = a1[:, :C].contiguous(), a2[:, :C].contiguous()
+        b_len = a_len.clamp(max=C)
+        want = tk.detect_peaks_plain(b1, b2, b_len, cfg)
+        assert torch.equal(tk.detect_peaks(b1, b2, b_len, cfg), want)
+    # a contiguous view that starts 4 bytes off a 16-byte boundary
+    off = torch.cat([b1.new_zeros(1), b1.reshape(-1)])[1:].view(b1.shape)
+    assert off.data_ptr() % 16 and off.is_contiguous()
+    assert torch.equal(tk.detect_peaks(off, b2, b_len, cfg), want)
     norm = torch.randn(64, 1024, device=cuda_device)
     cnt = torch.randint(0, 1024, (64,), device=cuda_device, dtype=torch.int32)
     assert torch.equal(tk.compress_keep(norm, cnt, 0.1).contiguous(),

@@ -149,3 +149,115 @@ def test_chip_smoke_fails_without_the_repo(tmp_path):
     assert r.returncode != 0
     assert '"ok": true' not in r.stdout
     assert "No module named 'sigmap_tpu_torch'" in r.stderr, r.stderr
+
+
+def test_chip_smoke_host_gaps_names_the_ops_in_each_gap(tmp_path):
+    """The smoke's gap list: gaps between merged device intervals and the
+    stretches before the first and after the last one, longest first, each
+    with the host ops that ran inside it and their share."""
+    import json
+
+    sys.path.insert(0, ROOT)
+    from chip_smoke import host_gaps
+
+    ev = [dict(ph="X", cat="cpu_op", name="aten::empty", ts=-40, dur=30),
+          dict(ph="X", cat="kernel", name="k1", ts=0, dur=100),
+          dict(ph="X", cat="kernel", name="k2", ts=50, dur=100),   # overlaps
+          dict(ph="X", cat="gpu_memcpy", name="copy", ts=1150, dur=50),
+          dict(ph="X", cat="kernel", name="k3", ts=1400, dur=10),
+          dict(ph="X", cat="cpu_op", name="aten::sort", ts=100, dur=550),
+          dict(ph="X", cat="cpu_op", name="aten::nonzero", ts=700, dur=250),
+          dict(ph="X", cat="cuda_runtime", name="cudaMemcpyAsync", ts=900,
+               dur=100),
+          dict(ph="X", cat="cuda_runtime", name="cudaDeviceSynchronize",
+               ts=2000, dur=10),
+          dict(ph="X", cat="Trace", name="PyTorch Profiler (0)", ts=-100,
+               dur=2200)]
+    path = tmp_path / "trace.json"
+    path.write_text(json.dumps({"traceEvents": ev}))
+    got = host_gaps(str(path), top=3)
+    assert got["n_gaps"] == 4
+    assert got["gap_ms"] == pytest.approx(0.1 + 1.0 + 0.2 + 0.69)
+    assert got["host_ops"][:2] == [("aten::sort", 0.5),
+                                   ("aten::nonzero", 0.25)]
+    gaps = got["longest"]
+    assert [g["gap_ms"] for g in gaps] == [1.0, 0.69, 0.2]
+    g = gaps[0]                    # device idle from 150 to 1150
+    assert (g["after"], g["before"]) == ("k2", "copy")
+    assert g["host_ops"] == [("aten::sort", 0.5), ("aten::nonzero", 0.25),
+                             ("cudaMemcpyAsync", 0.1)]
+    assert g["host_op_share"] == pytest.approx(0.8)   # 150-650 and 700-1000
+    g = gaps[1]                    # after the last device interval
+    assert (g["after"], g["before"]) == ("k3", "(end of the pass)")
+    assert g["host_ops"] == [("cudaDeviceSynchronize", 0.01)]
+    assert gaps[2]["host_ops"] == [] and gaps[2]["host_op_share"] == 0.0
+
+
+@pytest.mark.parametrize("kb", [1, 4, 8])
+def test_chip_smoke_chain_work_counts_filled_slots(kb):
+    """chain_work charges every test against the filled part of the ring
+    the refusal's operations, and a whole test's only where the slot holds
+    the anchor's g and a target in its window: a direct count, row by row
+    against a ring kept as the DP keeps it, gives the same numbers."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from chip_smoke import (CHAIN_OPS_PER_REFUSAL, CHAIN_OPS_PER_SLOT,
+                            chain_adversarial, chain_counts, chain_work)
+
+    args, kw = chain_adversarial(0)
+    a_t, a_g, ring = args[0], args[3], kw["ring"]
+    CARRY = args[4].shape[0]
+    A, B = a_g.shape
+    tgap = 40            # narrower than the reads' spans: both outcomes occur
+    tests = pairs = n_valid = longest = 0
+    for b in range(B):
+        slots = [None] * ring          # (t, g) by physical slot
+        cur = 0
+        for i in range(CARRY):
+            if a_g[i, b] >= 0:
+                slots[cur % ring] = (int(a_t[i, b]), int(a_g[i, b]))
+                cur += 1
+        mine = 0
+        for i0 in range(CARRY, A, kb):
+            rows = [i for i in range(i0, i0 + kb) if a_g[i, b] >= 0]
+            filled = [s for s in slots if s is not None]
+            assert len(filled) == min(cur, ring)
+            for i in rows:               # the ring at the block's start
+                tests += len(filled)
+                pairs += sum(g == a_g[i, b] and 0 < a_t[i, b] - t <= tgap
+                             for t, g in filled)
+            for i in rows:
+                slots[cur % ring] = (int(a_t[i, b]), int(a_g[i, b]))
+                cur += 1
+            mine += len(rows)
+        n_valid += mine
+        longest = max(longest, mine)
+    got = chain_counts(torch.from_numpy(a_t), torch.from_numpy(a_g), CARRY,
+                       ring, kb, tgap)
+    assert got == dict(valid_new_anchors=n_valid,
+                       longest_read_valid_anchors=longest, slot_tests=tests,
+                       window_pairs=pairs,
+                       slot_tests_all_slots=n_valid * ring)
+    assert 0 < pairs < tests < n_valid * ring
+    ops, nbytes = chain_work(got, A, B, CARRY, ring)
+    assert ops == (tests * CHAIN_OPS_PER_REFUSAL
+                   + pairs * (CHAIN_OPS_PER_SLOT - CHAIN_OPS_PER_REFUSAL))
+    assert nbytes == 4 * (4 * A * B + 5 * CARRY * B + 8 * ring * B + 16 * B)
+
+
+def test_chip_smoke_last_line_is_the_result_object():
+    """chip_smoke.py parses, and the last statement of its main() prints
+    exactly {"ok": true, "device": {"platform": "gpu", "kind": <device
+    name>, "count": <device count>}}."""
+    import ast as _ast
+
+    with open(os.path.join(ROOT, "chip_smoke.py")) as f:
+        src = f.read()
+    main = next(n for n in _ast.parse(src).body
+                if isinstance(n, _ast.FunctionDef) and n.name == "main")
+    last = _ast.get_source_segment(src, main.body[-1])
+    assert " ".join(last.split()) == (
+        'print(json.dumps({"ok": True, "device": { "platform": "gpu", '
+        '"kind": torch.cuda.get_device_name(0), '
+        '"count": torch.cuda.device_count()}}))')

@@ -1,8 +1,9 @@
 """The port's host pieces: the JAX-free Oracle (exact rescue engine) and the
 turbo mapper's capacity-overflow rescue, against sigmap_tpu.
 
-Both oracles run the same native core and host chaining, so they agree
-exactly.  The rescue setup is tests/test_turbo.py:92-129 (S=16, K=1,
+Both oracles run the same native core source, built with the same flags
+(the jax_native_from_source fixture), and the same host chaining, so they
+agree exactly.  The rescue setup is tests/test_turbo.py:92-129 (S=16, K=1,
 radius 0.5): the port maps the same reads at the same loci as the JAX
 mapper, and without rescue it maps fewer.
 """
@@ -18,7 +19,8 @@ from sigmap_tpu.oracle import Oracle as JaxOracle
 from sigmap_tpu.synth import random_genome
 from sigmap_tpu_torch.mapping import turbo as port
 from sigmap_tpu_torch.oracle import Oracle
-from _torch_util import workload  # noqa: F401 - fixture
+from _torch_util import (jax_native_from_source,  # noqa: F401 - fixtures
+                         workload)
 
 
 def _chain_key(c):
@@ -28,7 +30,7 @@ def _chain_key(c):
             a["target"].tobytes(), a["query"].tobytes(), a["dist"].tobytes())
 
 
-def test_port_oracle_matches_jax_package(workload):
+def test_port_oracle_matches_jax_package(workload, jax_native_from_source):
     cfg, idx, _, signals = workload
     mine, ref = Oracle(idx, cfg), JaxOracle(idx, cfg)
     for s in signals[:16]:
@@ -47,7 +49,7 @@ def _loci(records):
             for r in records if r.is_mapped}
 
 
-def test_port_rescue_matches_jax(workload):
+def test_port_rescue_matches_jax(workload, jax_native_from_source):
     from sigmap_tpu.mapping.turbo import TurboMapper, TurboParams
 
     cfg, _, reads, signals = workload

@@ -42,6 +42,7 @@ import sigmap_tpu_torch.native as p_native
 import sigmap_tpu_torch.ops.cwt as p_cwt
 import sigmap_tpu_torch.synth as p_synth
 import sigmap_tpu_torch.utils as p_utils
+from _torch_util import jax_native_from_source  # noqa: F401 - fixture
 
 GENOME_BASES = 50_000
 
@@ -321,11 +322,19 @@ def case_ops_cwt(data, tmp):
             np.testing.assert_array_equal(a, b)
 
 
-def case_native(data, tmp):
-    assert j_native.available() and p_native.available()
+def _native_inputs():
     rng = np.random.default_rng(1)
     vals = rng.normal(0, 1, 20_000).astype(np.float32)
     qs = rng.normal(0, 1, (64, 6)).astype(np.float32)
+    return vals, qs
+
+
+def case_native(data, tmp):
+    """Source against source: the jax_native_from_source fixture (requested
+    by the test below) has pointed sigmap_tpu.native at its own build of
+    native/core.cc with the port's flags."""
+    assert j_native.available() and p_native.available()
+    vals, qs = _native_inputs()
     jt, pt = j_native.KdTree(vals, 6), p_native.KdTree(vals, 6)
     for a, b in zip(jt.radius_batch(qs, 0.8), pt.radius_batch(qs, 0.8)):
         np.testing.assert_array_equal(a, b)
@@ -352,9 +361,30 @@ CASES = {
 
 
 @pytest.mark.parametrize("module", sorted(CASES))
-def test_port_copy_matches_original(module, data, tmp_path):
+def test_port_copy_matches_original(module, data, tmp_path,
+                                    jax_native_from_source):
     """sigmap_tpu_torch.<module> gives what sigmap_tpu.<module> gives."""
     CASES[module](data, tmp_path)
+
+
+def test_native_core_has_no_contracted_multiply_add():
+    """The port's host core rounds op by op on every host: its k-d tree's
+    squared distances equal a numpy f32 evaluation of sum((w - q)**2) taken
+    in dimension order, exactly, where a contracted multiply-add (FMA)
+    would differ in the last bit of some of them."""
+    assert p_native.available()
+    vals, qs = _native_inputs()
+    dim = qs.shape[1]
+    win = np.lib.stride_tricks.sliding_window_view(vals, dim)
+    idx, d2, cnt = p_native.KdTree(vals, dim).radius_batch(qs, 0.8)
+    assert len(idx) > 1000
+    q = np.repeat(qs, cnt, axis=0)
+    diff = win[idx] - q                       # f32 - f32, rounded once
+    want = np.zeros(len(idx), np.float32)
+    for k in range(dim):                      # one rounding a mul, one an add
+        want = want + diff[:, k] * diff[:, k]
+    assert want.dtype == np.float32
+    np.testing.assert_array_equal(d2, want)
 
 
 def test_every_copy_has_a_case():
