@@ -16,8 +16,9 @@
    padding seeds; dims 1, 6 and 8), and prints its ptxas registers, stack
    and spills; B4 runs on round 1's anchors with round 0's carry, on round
    0 (an empty carry, the ring filling up) and on adversarial reads (ties,
-   a wrapping ring, empty blocks), B1 also on adversarial rows (ragged
-   lengths, R and C off the kernel's tile sizes);
+   a wrapping ring, empty blocks), whole and in windows of ADV_WINDOW_ROWS
+   rows; B1 and B2 also on adversarial rows (ragged lengths, R, C and E off
+   the kernels' tile sizes; B2's steps at delta and one ulp either side);
 4. drives the main path through the CLI (``-i`` then ``-m``) on a synthetic
    genome with BLOW5 (zlib) reads, scores the PAF against the simulation
    truth, and checks that every kernel of the path was launched;
@@ -39,7 +40,16 @@
    on the first EXACT_READS reads and ``--batch-mode`` on the first
    BATCH_MODE_READS, each scored like phase 4; B1/B2 == plain first on
    each path's own rows (the streaming wavefront's first chunks, batch
-   mode's whole reads).
+   mode's whole reads);
+8. the turbo path at TurboParams(S=1024, K=16), whose reads B4 takes in
+   windows: B4 == plain on round 0's and round 1's anchors of the first
+   batch (valid rows, windows, scratch bytes, bound), timed in the
+   default windows (three blocks an SM) and in the largest; then
+   ``streaming_map``
+   of the first WIDE_READS reads, scored like phase 4, every turbo kernel
+   launched;
+9. tests/test_torch_gpu.py under pytest (``-m gpu --noconftest``): every
+   case must pass, none skip; its summary line is printed.
 
 A line before the last is the per-kernel JSON record (each kernel's
 launches, max_abs_err, ms, plain_ms, its bound from the operations and bytes
@@ -74,6 +84,10 @@ DTW_SHAPE = (1024, 2048, 512)   # bench.py:bench_dtw's B, T, Q
 EXACT_READS = 512
 BATCH_MODE_READS = 128
 EXACT_READ_BATCH = 512   # --read-batch of phase 7: one wavefront of reads
+# phase 8: TurboParams whose S*K rows a read B4 takes only in windows (the
+# JAX package's K=16 operating point at S=1024), on a prefix of the reads
+WIDE = dict(S=1024, K=16)
+WIDE_READS = 512
 
 KERNELS = {
     "peaks": ("sigmap_tpu_torch/csrc/events.cu",
@@ -194,10 +208,14 @@ def chain_work(counts, A, B, CARRY, ring):
             A * B * 16 + CARRY * B * 4 * 5 + ring * B * 4 * 8 + B * 16 * 4)
 
 
+ADV_WINDOW_ROWS = 16   # B4's window on chain_adversarial: 4 windows a read
+
+
 def chain_adversarial(seed=0):
     """B4 inputs (numpy: the nine arrays of chain_fused, and radius, dim,
-    ring) for B = 8 reads, CARRY = RING = 16 and 64 new rows, one read a
-    rule; the new rows tile by kb = 1, 4 and 8:
+    ring) for B = 13 reads, CARRY = RING = 16 and 64 new rows, one read a
+    rule; the new rows tile by kb = 1, 4, 8 and 16, and reads 8-12 set
+    rules across the windows of ADV_WINDOW_ROWS new rows:
     0 two ring slots give one new anchor equal candidate scores (the lowest
       slot must win: the slots carry different chain starts);
     1 every row valid on one diagonal: more than RING valid rows, so the
@@ -208,13 +226,21 @@ def chain_adversarial(seed=0):
     4 an empty carry;
     5 no valid row at all;
     6 three identical chains on three references: chains 1, 2 and 3 tie;
-    7 random anchors and a half-filled carry.
-    Distances are 0 in reads 0-6, so every score there is a whole number
-    and ties are exact in any float type."""
+    7 random anchors and a half-filled carry;
+    8 a full carry, then valid rows from new row 8 to 40: the ring wraps
+      across the first two window boundaries;
+    9 chain 1 in window 0, chain 2 in window 1, chain 3 in windows 2-3
+      ending on the read's last valid row;
+    10 two chains of one score in windows 0 and 2: the first is chain 1;
+    11 one chain through windows 0 and 2 with window 1 (and 3) all invalid;
+    12 carried rows that overlap chain 1 (on both strands of its reference),
+      with a higher score than chain 2.
+    Distances are 0 in reads 0-6 and 8-12, so every score there is a whole
+    number and ties are exact in any float type."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
-    B, RING, N = 8, 16, 64
+    B, RING, N = 13, 16, 64
     A = RING + N
     a_t = np.zeros((A, B), np.int32)
     a_q = np.zeros((A, B), np.int32)
@@ -280,6 +306,46 @@ def chain_adversarial(seed=0):
     c_stq[:, 7] = rng.integers(0, 50, RING)
     c_n[:, 7] = rng.integers(1, 20, RING)
     c_sumd[:, 7] = rng.random(RING)
+
+    # reads 9-12: one chain anchor an 8-row block (so chains link alike at
+    # kb 1, 4 and 8), seeded by carried rows, steps of 6 in t and q (a link
+    # adds min(6, dim) = 6 from any earlier row, so the row just before,
+    # which scores highest, is always the predecessor)
+    def diagonal(b, rows, g, t0, q0):
+        a_q[rows, b] = q0 + 6 * np.arange(1, len(rows) + 1)
+        a_t[rows, b] = t0 + a_q[rows, b] - q0
+        a_g[rows, b] = g
+
+    # 8: a full carry, then new rows 8..40 on its diagonal
+    carried(8, np.arange(RING), 1000 + 3 * np.arange(RING),
+            3 * np.arange(RING), 2, 6.0 + np.arange(RING))
+    a_q[new[8:41], 8] = 3 * RING + 3 * np.arange(33)
+    a_t[new[8:41], 8] = 1000 + a_q[new[8:41], 8]
+    a_g[new[8:41], 8] = 2
+    # 9: carried seeds of 30, 20, 10 on g 0, 2, 4 extended by 2, 2 and 3
+    # anchors in windows 0, 1 and 2-3: chains of 42, 32 and 28
+    carried(9, np.arange(3), np.array([1000, 3000, 5000]), 0,
+            np.array([0, 2, 4]), np.array([30.0, 20.0, 10.0]))
+    diagonal(9, new[0:16:8], 0, 1000, 0)
+    diagonal(9, new[16:32:8], 2, 3000, 0)
+    diagonal(9, new[40:64:8], 4, 5000, 0)
+    # 10: chains of 32 on g 0 (window 0) and g 6 (window 2)
+    carried(10, np.arange(2), 1000, 0, np.array([0, 6]), 20.0)
+    diagonal(10, new[0:16:8], 0, 1000, 0)
+    diagonal(10, new[32:48:8], 6, 1000, 0)
+    # 11: one chain of 44 through windows 0 and 2
+    carried(11, np.arange(1), 4000, 0, 8, 20.0)
+    diagonal(11, np.concatenate([new[0:16:8], new[32:48:8]]), 8, 4000, 0)
+    # 12: a carried chain on g 2 (start 500) that the new rows extend to
+    # chain 1 (46), a carried row of 30 on g 3 inside its target interval,
+    # and a fresh chain of 12 on g 4 in window 3
+    carried(12, np.arange(3), 500 + 6 * np.arange(3), 6 * np.arange(3), 2,
+            10.0 + 6 * np.arange(3))
+    c_stt[:3, 12] = 500
+    carried(12, np.array([3]), 530, 5, 3, 30.0)
+    c_stt[3, 12] = 510
+    diagonal(12, new[0:32:8], 2, 512, 12)
+    diagonal(12, new[48:64:8], 4, 7000, 100)
     return ((a_t, a_q, a_d, a_g, c_score, c_stt, c_stq, c_n, c_sumd),
             dict(radius=0.08, dim=6, ring=RING))
 
@@ -313,6 +379,60 @@ def peaks_adversarial(seed=0):
     t1[3, 60:64] = (2.0, 5.5, 8.0, 3.0)
     t2[3, 61:68] = (1.0, 2.0, 4.0, 6.0, 4.5, 2.0, 0.5)
     return t1, t2, lengths
+
+
+def compress_adversarial(seed=0):
+    """B2 inputs (numpy: norm [R, E] f32, n [R] i32, and delta) with R = 70
+    rows (two full warps of rows and 6) and E = 203 events (three tiles of
+    64 and 11; no multiple of 4, so the wrapper pads the rows):
+    0-2 n = 0, 1 and E;
+    3 one value throughout, then runs of equal values;
+    4 steps of exactly delta from the last kept value, up and down, and one
+      ulp either side (a step is kept only above delta);
+    5, 6 negative zero, as the first (kept) value and as a later one;
+    7 a kept value that must last across the tile boundary at event 64,
+      where a step from it, not from the values since, decides;
+    8 every event kept;
+    9- random counts (tile boundaries among them) over runs of equal values
+      and values on a 0.05 grid, whose steps fall on either side of delta."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    R, E = 70, 203
+    d = np.float32(0.1)
+    up, down = np.float32(np.inf), np.float32(-np.inf)
+    norm = rng.normal(0, 1, (R, E)).astype(np.float32)
+    n = rng.integers(0, E + 1, R).astype(np.int32)
+    n[:9] = (0, 1, E, E, E, E, E, E, E)
+    n[9:14] = (63, 64, 65, 128, 129)
+    norm[3] = 0.25
+    norm[3, 100:] = np.repeat(rng.normal(0, 1, 13), 8)[:E - 100]
+    # a last value L (a multiple of delta's ulp, 2^-27, near 0.02) from
+    # which steps of delta and of one ulp either side of it, up and down,
+    # are exact in f32
+    steps = (np.nextafter(d, down), d, np.nextafter(d, up))
+    L = np.float32(2684355 * 2.0 ** -27)
+    assert all(np.float32(L + x) - L == x and L - np.float32(L - x) == x
+               for x in steps)
+    ups = [np.float32(L + x) for x in steps]
+    downs = [np.float32(L - x) for x in steps]
+    # kept: L, then the step of one ulp above delta down, then up from L
+    norm[4, :9] = (L, ups[0], ups[1], downs[0], downs[1], downs[2], L,
+                   ups[2], ups[2])
+    norm[5, :5] = (-0.0, 0.0, d, -d, np.nextafter(d, up))
+    norm[6, :5] = (0.0, -0.0, -d, np.nextafter(-d, down), 0.0)
+    # 0.5 kept, 0.45s not; 0.0 kept at event 63, the last of tile 0; then
+    # steps below delta from 0.0 (but not from 0.45 or from each other)
+    # until 0.11
+    norm[7, :74] = 0.45
+    norm[7, 0], norm[7, 63], norm[7, 64] = 0.5, 0.0, np.nextafter(d, down)
+    norm[7, 65:72], norm[7, 72:74] = 0.05, (0.09, 0.11)
+    norm[8] = np.arange(E, dtype=np.float32) * np.float32(0.25)
+    grid = (rng.integers(-20, 21, (R - 9, E)) * np.float32(0.05)).astype(
+        np.float32)
+    runs = np.repeat(grid[:, ::4], 4, axis=1)[:, :E]
+    norm[9:] = np.where(rng.random((R - 9, 1)) < 0.5, runs, grid)
+    return norm, n, float(d)
 
 
 def sdtw_work(t_len, q_len, T, Q):
@@ -489,10 +609,11 @@ def make_workload(work, genome_bases, n_reads):
     return reads
 
 
-def first_batch(map_args, dev):
-    """The mapper of the `-m` arguments on `dev` and the first batch's
-    feature stages, as the main path's functions build them: (mapper,
-    signals, cfg, fs, n_full, clen, (B, NC, Cs))."""
+def first_batch(map_args, dev, params=None):
+    """The mapper of the `-m` arguments on `dev` (with TurboParams `params`,
+    default the operating point) and the first batch's feature stages, as
+    the main path's functions build them: (mapper, signals, cfg, fs,
+    n_full, clen, (B, NC, Cs))."""
     from sigmap_tpu_torch.cli import build_parser, make_config
     from sigmap_tpu_torch.index.build import SignalIndex
     from sigmap_tpu_torch.io.signals import load_all_read_signals
@@ -504,7 +625,7 @@ def first_batch(map_args, dev):
     m = cfg.mapping
     idx = SignalIndex.load(args.ref_index)
     signals = load_all_read_signals(args.sig_dir, m.pa_lo, m.pa_hi)
-    mapper = T.TurboMapper(idx, cfg, device=dev)
+    mapper = T.TurboMapper(idx, cfg, params, device=dev)
     p = mapper.p
     qd, qoff, qscale, n_full, _ = mapper.upload_batch(
         signals[: cfg.runtime.read_batch])
@@ -536,6 +657,78 @@ def round0_sweep(mapper, feats, counts, n_full, cfg):
     return qr_s, bm, kw
 
 
+def chain_check(records, shape, args4, kw, sub=None, plain_reps=2):
+    """B4 on `args4` (chain_fused's nine tensors) with keywords `kw` (the
+    kernel's window_rows among them) against the plain version, timed, with
+    chain_counts' valid anchors and slot tests, the bound, the window the
+    kernel took the reads in and its shared memory (held to the CUDA
+    source's twin)."""
+    from sigmap_tpu_torch import _build
+    from sigmap_tpu_torch.ops import chain_fused as CF
+
+    def flat(out):      # (sum_f, sum_i, carry ring arrays) -> one tuple
+        return (out[0], out[1], *out[2])
+
+    A, B = args4[3].shape
+    CARRY = args4[4].shape[0]
+    ring, kb = kw["ring"], kw["kb"]
+    plain_kw = {k: v for k, v in kw.items() if k != "window_rows"}
+    cc = chain_counts(args4[0], args4[3], CARRY, ring, kb,
+                      kw["cfg"].max_target_gap_length)
+    ops, nbytes = chain_work(cc, A, B, CARRY, ring)
+    W = CF.check_fits(A, CARRY, ring, kb, kw.get("window_rows"))
+    smem = CF.shared_memory_bytes(A, CARRY, ring, kb, W)
+    assert smem == _build.kernels().sig_chain_fused_smem(
+        A, CARRY, ring, kb, W), "B4 shared-memory twin"
+    rec = check(records, "chain_fused", shape,
+                flat(CF.chain_fused(*args4, **kw)),
+                lambda: CF.chain_fused(*args4, **kw),
+                lambda: flat(CF.chain_fused_plain(*args4, **plain_kw)),
+                sub=sub, work=(ops, nbytes), plain_reps=plain_reps)
+    # the earlier counts, so that earlier runs' bounds stay comparable:
+    # a whole test for every filled slot, and for all RING slots
+    rec.update(cc, window_rows=W,
+               windows_per_read=-(-(A - CARRY) // W) if W else 1,
+               smem_bytes_per_read=smem,
+               scratch_bytes=B * A * 16 if W else 0, **{
+                   f"bound_ms_whole_test_{k}": bound(
+                       cc[c] * CHAIN_OPS_PER_SLOT, nbytes)["bound_ms"]
+                   for k, c in (("filled_slots", "slot_tests"),
+                                ("all_slots", "slot_tests_all_slots"))})
+    log(f"chain_fused {shape}: {cc}; window {W or 'whole read'} "
+        f"({rec['windows_per_read']} a read, {smem} B shared memory a read, "
+        f"{rec['scratch_bytes']} B scratch); bound {rec['bound_ms']:.4f} ms "
+        f"({rec['bound_by']}; {CHAIN_OPS_PER_REFUSAL} ops a refused test, "
+        f"{CHAIN_OPS_PER_SLOT} a test in the anchor's target window) = "
+        f"{100 * rec['bound_ms'] / rec['ms']:.1f}% of bound; at "
+        f"{CHAIN_OPS_PER_SLOT} ops for every filled slot "
+        f"{rec['bound_ms_whole_test_filled_slots']:.4f} ms, for all RING "
+        f"slots {rec['bound_ms_whole_test_all_slots']:.4f} ms")
+    return rec
+
+
+def chain_rounds(mapper, cfg, feats, counts, n_full):
+    """B4's inputs in the batch's rounds 0 (an empty carry) and 1 (round
+    0's carry), as the main path builds them: ((args0, args1), A)."""
+    from sigmap_tpu_torch.mapping import turbo as T
+
+    m, p, idx, s = cfg.mapping, mapper.p, mapper.index, mapper.store
+    B, NC = counts.shape
+    st = T.init_round_state(B, p.RING, feats.device)
+
+    def round_args(st, r):
+        ra = T.round_anchors(s, feats[:, r], counts[:, r], n_full, st, p,
+                             m.step_size, m.search_radius, idx.dim, m)
+        return (ra.a_t, ra.a_q, ra.a_d, ra.a_g,
+                *(x.contiguous() for x in st.carry[3:]))
+
+    args0 = round_args(st, 0)
+    st, _, _ = T.turbo_round(
+        s, feats[:, 0], counts[:, 0], n_full, st, p, m.step_size,
+        m.search_radius, idx.dim, cfg.chain, m)
+    return (args0, round_args(st, 1 % NC)), args0[0].shape[0]
+
+
 def compare_kernels(map_args, records, dev):
     """Phase 3: every kernel vs its plain version on the inputs that the
     main path's functions give it for the first batch.  Returns the mapper
@@ -543,9 +736,6 @@ def compare_kernels(map_args, records, dev):
     import numpy as np
     import torch
 
-    from sigmap_tpu_torch import _build
-    from sigmap_tpu_torch.mapping import turbo as T
-    from sigmap_tpu_torch.ops import chain_fused as CF
     from sigmap_tpu_torch.ops import sweep_kernel as SK
     from sigmap_tpu_torch.signal import events_kernels as EK
 
@@ -587,11 +777,30 @@ def compare_kernels(map_args, records, dev):
           lambda: (EK.compress_keep(fs.norm, fs.num_events, delta),),
           lambda: (EK.compress_keep_plain(fs.norm, fs.num_events, delta),),
           work=keep_work(B * NC, p.max_events))
+    copies = int(not (fs.norm.is_contiguous()
+                      and fs.norm.dtype == torch.float32
+                      and fs.norm.shape[1] % 4 == 0))
+    assert fs.keep.is_contiguous() and fs.keep.shape == fs.norm.shape, \
+        "B2 must return a contiguous [R, E] mask"
+    records["compress_keep"].update(wrapper_layout_copies=copies)
+    log(f"compress_keep wrapper: {copies} layout copies on the main path's "
+        f"rows (the kernel reads [R, E] and writes the [R, E] mask as they "
+        f"are: no transpose)")
+    k_norm, k_n, k_delta = (torch.from_numpy(a).to(dev) if i < 2 else a
+                            for i, a in enumerate(compress_adversarial()))
+    for E_adv, sub in ((k_norm.shape[1], "adversarial"),
+                       (k_norm.shape[1] // 4 * 4, "adversarial_unpadded")):
+        kn = k_norm[:, :E_adv].contiguous()
+        check(records, "compress_keep",
+              f"adversarial R={kn.shape[0]} E={E_adv}",
+              (EK.compress_keep(kn, k_n, k_delta),),
+              lambda: (EK.compress_keep(kn, k_n, k_delta),),
+              lambda: (EK.compress_keep_plain(kn, k_n, k_delta),),
+              sub=sub, work=keep_work(*kn.shape))
 
     # --- B3 on round 0's seeds, against the whole tile store ---------------
     feats = fs.feats.reshape(B, NC, -1)
     counts = fs.counts.reshape(B, NC)
-    st = T.init_round_state(B, p.RING, dev)
     qr_s, bm, kw = round0_sweep(mapper, feats, counts, n_full, cfg)
     s = mapper.store
     G = bm.shape[1]
@@ -656,66 +865,26 @@ def compare_kernels(map_args, records, dev):
     # --- B4: round 0 (empty carry), round 1 on round 0's carry, adversarial --
     ckw = dict(radius=m.search_radius, dim=idx.dim, ring=p.RING,
                cfg=cfg.chain, kb=p.K)
-
-    def flat(out):      # (sum_f, sum_i, carry ring arrays) -> one tuple
-        return (out[0], out[1], *out[2])
-
-    def chain_case(shape, args4, kw, sub=None):
-        A, B = args4[3].shape
-        CARRY = args4[4].shape[0]
-        cc = chain_counts(args4[0], args4[3], CARRY, kw["ring"], kw["kb"],
-                          kw["cfg"].max_target_gap_length)
-        ops, nbytes = chain_work(cc, A, B, CARRY, kw["ring"])
-        assert (CF.shared_memory_bytes(A, CARRY, kw["ring"], kw["kb"])
-                == _build.kernels().sig_chain_fused_smem(
-                    A, CARRY, kw["ring"], kw["kb"])), "B4 shared-memory twin"
-        rec = check(records, "chain_fused", shape,
-                    flat(CF.chain_fused(*args4, **kw)),
-                    lambda: CF.chain_fused(*args4, **kw),
-                    lambda: flat(CF.chain_fused_plain(*args4, **kw)),
-                    sub=sub, work=(ops, nbytes))
-        # the earlier counts, so that earlier runs' bounds stay comparable:
-        # a whole test for every filled slot, and for all RING slots
-        rec.update(cc, **{
-            f"bound_ms_whole_test_{k}": bound(
-                cc[c] * CHAIN_OPS_PER_SLOT, nbytes)["bound_ms"]
-            for k, c in (("filled_slots", "slot_tests"),
-                         ("all_slots", "slot_tests_all_slots"))})
-        log(f"chain_fused {shape}: {cc}; bound {rec['bound_ms']:.4f} ms "
-            f"({rec['bound_by']}; {CHAIN_OPS_PER_REFUSAL} ops a refused test, "
-            f"{CHAIN_OPS_PER_SLOT} a test in the anchor's target window) = "
-            f"{100 * rec['bound_ms'] / rec['ms']:.1f}% of bound; at "
-            f"{CHAIN_OPS_PER_SLOT} ops for every filled slot "
-            f"{rec['bound_ms_whole_test_filled_slots']:.4f} ms, for all RING "
-            f"slots {rec['bound_ms_whole_test_all_slots']:.4f} ms")
-        return rec
-
-    def round_args(st, r):
-        ra = T.round_anchors(s, feats[:, r], counts[:, r], n_full, st, p,
-                             m.step_size, m.search_radius, idx.dim, m)
-        return (ra.a_t, ra.a_q, ra.a_d, ra.a_g,
-                *(x.contiguous() for x in st.carry[3:]))
-
-    args0 = round_args(st, 0)
-    A = args0[0].shape[0]
-    chain_case(f"round 0 A={A} B={B} RING={p.RING} kb={p.K}", args0, ckw,
-               sub="round0")
-    st, _, _ = T.turbo_round(
-        s, feats[:, 0], counts[:, 0], n_full, st, p, m.step_size,
-        m.search_radius, idx.dim, cfg.chain, m)
-    args1 = round_args(st, 1 % NC)
-    rec = chain_case(f"A={A} B={B} RING={p.RING} kb={p.K}", args1, ckw)
-    rec.update(smem_bytes_per_read=CF.shared_memory_bytes(
-                   A, p.RING, p.RING, p.K),
-               ptxas=ptxas_summary("chain_fused"))
-    log(f"chain_fused: {rec['smem_bytes_per_read']} B shared memory a read; "
-        f"ptxas: {rec['ptxas']}")
+    (args0, args1), A = chain_rounds(mapper, cfg, feats, counts, n_full)
+    chain_check(records, f"round 0 A={A} B={B} RING={p.RING} kb={p.K}",
+                args0, ckw, sub="round0")
+    rec = chain_check(records, f"A={A} B={B} RING={p.RING} kb={p.K}", args1,
+                      ckw)
+    rec.update(ptxas=ptxas_summary("chain_fused"))
+    log(f"chain_fused ptxas: {rec['ptxas']}")
     adv_args, adv_kw = chain_adversarial()
     adv_args = tuple(torch.from_numpy(a).to(dev) for a in adv_args)
+    nb = adv_args[0].shape[1]
     for kb in (1, 4, 8):
-        chain_case(f"adversarial B=8 RING=16 kb={kb}", adv_args,
-                   dict(adv_kw, cfg=cfg.chain, kb=kb),
-                   sub=f"adversarial_kb{kb}")
+        chain_check(records, f"adversarial B={nb} RING=16 kb={kb}", adv_args,
+                    dict(adv_kw, cfg=cfg.chain, kb=kb),
+                    sub=f"adversarial_kb{kb}")
+    for kb in (1, 4, 8, 16):
+        chain_check(records, f"adversarial B={nb} RING=16 kb={kb} in windows "
+                    f"of {ADV_WINDOW_ROWS}", adv_args,
+                    dict(adv_kw, cfg=cfg.chain, kb=kb,
+                         window_rows=ADV_WINDOW_ROWS),
+                    sub=f"adversarial_windows_kb{kb}")
     return mapper, signals
 
 
@@ -1144,6 +1313,113 @@ def exact_phase(records, by_path, dev, work, reads, map_args):
             assert by_path[name][k] > 0, f"{name} did not launch {k}"
 
 
+def wide_phase(records, by_path, dev, work, reads, map_args, oracle):
+    """Phase 8: the turbo path at TurboParams(S=1024, K=16): 768 carried
+    and 16,384 new anchor rows a read, which B4 takes in windows (the
+    parent refused the shape).  B4 == plain on round 0's and round 1's
+    anchors of the first batch (all its reads), timed in the default
+    windows (three blocks an SM) and in the largest; then streaming_map of the
+    first WIDE_READS reads (read batch WIDE_READS), scored like phase 4.
+    The mapper takes phase 5's rescue oracle (the same index and
+    configuration) instead of building its own."""
+    import dataclasses
+
+    import torch
+
+    from sigmap_tpu_torch import LAUNCHES, reset_launches
+    from sigmap_tpu_torch.mapping import turbo as T
+    from sigmap_tpu_torch.ops import chain_fused as CF
+
+    params = T.TurboParams(**WIDE)
+    t0 = time.perf_counter()
+    mapper, signals, cfg, fs, n_full, _, (B, NC, _) = first_batch(
+        map_args, dev, params)
+    log(f"wide: TurboMapper(S={params.S}, K={params.K}) and the first batch "
+        f"in {time.perf_counter() - t0:.1f} s")
+    m, p = cfg.mapping, mapper.p
+    ckw = dict(radius=m.search_radius, dim=mapper.index.dim, ring=p.RING,
+               cfg=cfg.chain, kb=p.K)
+    args, A = chain_rounds(mapper, cfg, fs.feats.reshape(B, NC, -1),
+                           fs.counts.reshape(B, NC), n_full)
+    del fs
+    big = CF.largest_window(p.RING, p.K)
+    for r, a in enumerate(args):
+        rec = chain_check(records, f"round {r} A={A} B={B} RING={p.RING} "
+                          f"kb={p.K} (S={p.S})", a, ckw, sub=f"wide_round{r}",
+                          plain_reps=0)
+        want = CF.chain_fused(*a, **ckw)
+        got = CF.chain_fused(*a, **ckw, window_rows=big)
+        err = max_abs_err(list(zip((got[0], got[1], *got[2]),
+                                   (want[0], want[1], *want[2]))))
+        assert err == 0.0, "B4 differs between two window sizes"
+        rec.update(window_rows_largest=big, ms_largest_window=cuda_ms(
+            lambda: CF.chain_fused(*a, **ckw, window_rows=big), 5))
+        smem = CF.shared_memory_bytes(A, p.RING, p.RING, p.K, big)
+        log(f"chain_fused round {r} (S={p.S}): {rec['ms']:.3f} ms in the "
+            f"default windows of {rec['window_rows']} rows (three blocks an "
+            f"SM, {rec['smem_bytes_per_read']} B) against "
+            f"{rec['ms_largest_window']:.3f} ms in the largest, {big} rows "
+            f"({smem} B)")
+    mapper.close()
+    del mapper, args, signals
+    torch.cuda.empty_cache()
+
+    n = min(WIDE_READS, len(reads))
+    sig = os.path.join(work, "signals_wide")
+    write_reads(sig, reads[:n])
+    from sigmap_tpu_torch.cli import build_parser, make_config
+    from sigmap_tpu_torch.index.build import SignalIndex
+    from sigmap_tpu_torch.io.signals import load_all_read_signals
+
+    a = build_parser().parse_args(map_args)
+    cfg = make_config(a)
+    cfg = dataclasses.replace(cfg, runtime=dataclasses.replace(
+        cfg.runtime, read_batch=n))
+    mapper = T.TurboMapper(SignalIndex.load(a.ref_index), cfg, params,
+                           device=dev, oracle=oracle)
+    signals = load_all_read_signals(sig, cfg.mapping.pa_lo,
+                                    cfg.mapping.pa_hi)
+    reset_launches()
+    t0 = time.perf_counter()
+    recs = mapper.streaming_map(signals)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = by_path["turbo_wide"] = dict(LAUNCHES)
+    mapped, correct = score_hits(
+        {r.read_name: ("+" if r.direction == 1 else "-", r.fragment_start,
+                       r.fragment_start + r.fragment_length)
+         for r in recs if r.is_mapped}, reads[:n])
+    log(f"wide turbo S={p.S} K={p.K}: {n} reads in {wall:.3f} s = "
+        f"{n / wall:.3f} reads/s; mapped {mapped}/{n}, correct {correct}/{n};"
+        f" rescued {mapper.n_rescued} ({mapper.n_rescued_mapped} mapped); "
+        f"launches {launches}")
+    mapper.close()
+    assert mapped >= 0.99 * n, f"wide: only {mapped}/{n} reads mapped"
+    assert correct >= 0.99 * n, f"wide: only {correct}/{n} reads correct"
+    for k in ("peaks", "compress_keep", "sweep", "chain_fused"):
+        assert launches[k] > 0, f"wide turbo did not launch {k}"
+
+
+def gpu_test_phase():
+    """Phase 9: tests/test_torch_gpu.py on the card, as the README runs it
+    (no conftest: tests/conftest.py imports jax).  Fails unless pytest
+    exits 0 and its summary is only passes (no failure, error or skip)."""
+    cmd = [sys.executable, "-m", "pytest", "-m", "gpu", "--noconftest", "-p",
+           "no:cacheprovider", "-q", "tests/test_torch_gpu.py"]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                       timeout=900)
+    lines = [x for x in r.stdout.splitlines() if x.strip()]
+    summary = lines[-1].strip("= ") if lines else ""
+    log(summary)
+    ok = r.returncode == 0 and re.fullmatch(r"\d+ passed in \S+.*", summary)
+    if not ok:
+        log(r.stdout[-8000:])
+        log(r.stderr[-4000:])
+        raise AssertionError(f"gpu tests: rc {r.returncode}, {summary!r}")
+    log(f"gpu tests: {time.perf_counter() - t0:.1f} s")
+
+
 def score_paf(path, reads):
     """(mapped, correct) against the simulation truth (bench.py accuracy)."""
     by_name = {}
@@ -1153,6 +1429,11 @@ def score_paf(path, reads):
             if int(c[11]) > 60:
                 continue
             by_name[c[0]] = (c[4], int(c[7]), int(c[8]))
+    return score_hits(by_name, reads)
+
+
+def score_hits(by_name, reads):
+    """(mapped, correct) of {read name: (strand, start, end)}."""
     mapped = correct = 0
     for r in reads:
         hit = by_name.get(r.read_id)
@@ -1242,6 +1523,7 @@ def main():
 
     profile_warm(mapper, signals, work)
     mapper.close()
+    oracle = mapper._get_oracle()
     del mapper, signals
     torch.cuda.empty_cache()
 
@@ -1249,6 +1531,10 @@ def main():
     exact_phase(records, by_path, dev, work, reads,
                 ["-m", *common, "-x", os.path.join(work, "idx"),
                  "--read-batch", str(EXACT_READ_BATCH)])
+    wide_phase(records, by_path, dev, work, reads, map_args, oracle)
+    del oracle
+    torch.cuda.empty_cache()
+    gpu_test_phase()
 
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=src, replaces=rep,

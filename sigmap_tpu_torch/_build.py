@@ -144,10 +144,10 @@ def _bind(lib: ctypes.CDLL) -> None:
     ]
     lib.sig_chain_fused_launch.restype = I
     lib.sig_chain_fused_launch.argtypes = (
-        [P] * 9 + [I] * 5 + [F, I, I, I, F, F] + [P] * 10 + [P]
+        [P] * 9 + [I] * 6 + [F, I, I, I, F, F] + [P] * 11 + [P]
     )
     lib.sig_chain_fused_smem.restype = ctypes.c_longlong
-    lib.sig_chain_fused_smem.argtypes = [I, I, I, I]
+    lib.sig_chain_fused_smem.argtypes = [I, I, I, I, I]
     lib.sig_sdtw_launch.restype = I
     lib.sig_sdtw_launch.argtypes = [P, P, P, P, I, I, I, I, P, P, P, P]
 

@@ -23,9 +23,17 @@
 // latency-bound.
 //
 // B2 replaces events_pallas.py:_compress_kernel (called by
-// compress_keep_pallas): the delta run-collapse of sigmap.cc:1072-1079, one
-// thread per row over E event means; its input is [E, R] so neighbouring
-// threads read neighbouring addresses, and the wrapper transposes.
+// compress_keep_pallas): the delta run-collapse of sigmap.cc:1072-1079, a
+// serial scan of E event means a row carrying one value (the last kept), so
+// it is laid out as B1: a lane owns a row, a warp 32 rows, and a block of
+// two warps reads [R, E] and writes the [R, E] mask through padded
+// shared-memory tiles of 32 rows x kKeepTile events.  Warp 0 runs the scan on
+// tile k (four events a 16-byte read, their four keep flags one 16-byte
+// write) while warp 1 fills tile k + 1 and drains tile k - 1 along E with
+// 16-byte copies.  R / 32 blocks spread over every SM (384 at R = 12288).
+// It is bound by bytes (8 B an event against 4 operations); what it cannot
+// hide is the chain of E dependent steps a row.  The wrapper pads rows whose
+// E is no multiple of 4, and copies a view off a 16-byte boundary.
 //
 // All comparisons are on f32 values computed exactly as the reference does
 // (no FMA is involved: the state machine only subtracts and compares).
@@ -182,20 +190,92 @@ __global__ void __launch_bounds__(64) peaks_kernel(
   if (warp == 1) drain(ntiles - 1);
 }
 
-__global__ void compress_keep_kernel(const float* __restrict__ norm,
-                                     const int* __restrict__ n, int R, int E,
-                                     float delta, int* __restrict__ keep) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= R) return;
-  const int nr = n[r];
+constexpr int kKeepRows = 32;                 // rows a block owns
+constexpr int kKeepTile = 64;                 // events a tile
+constexpr int kKeepLd = kKeepTile + 4;        // row stride of a tile
+constexpr int kKeepBuf = kKeepRows * kKeepLd;
+constexpr int kKeepSmem = 2 * 2 * kKeepBuf * 4;  // means and flags, twice
+
+__global__ void __launch_bounds__(64) compress_keep_kernel(
+    const float* __restrict__ norm, const int* __restrict__ n, int R, int E,
+    float delta, int* __restrict__ keep) {
+  extern __shared__ __align__(16) float keep_smem[];
+  float* tin = keep_smem;                                        // [2][32][Ld]
+  int* tout = reinterpret_cast<int*>(keep_smem + 2 * kKeepBuf);  // [2][32][Ld]
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int r0 = blockIdx.x * kKeepRows;
+  const int nrows = min(kKeepRows, R - r0);
+  const int ntiles = (E + kKeepTile - 1) / kKeepTile;
+
+  // as B1's fill and drain, one array each way: 16-byte copies along E
+  auto fill = [&](int tile) {
+    const int c0 = tile * kKeepTile;
+    const int m = min(kKeepTile, E - c0);
+    float* d = tin + (tile & 1) * kKeepBuf;
+    constexpr int kChunks = kKeepTile / 4;  // 16-byte chunks a row
+    for (int x = lane; x < nrows * kChunks; x += 32) {
+      const int rr = x / kChunks;
+      const int c = (x % kChunks) * 4;
+      if (c < m) {
+        const size_t g = (size_t)(r0 + rr) * E + c0 + c;
+        cp_async16(d + rr * kKeepLd + c, norm + g);
+      }
+    }
+    cp_async_commit();
+  };
+  auto drain = [&](int tile) {
+    const int c0 = tile * kKeepTile;
+    const int m = min(kKeepTile, E - c0);
+    const int* src = tout + (tile & 1) * kKeepBuf;
+    constexpr int kChunks = kKeepTile / 4;
+    for (int x = lane; x < nrows * kChunks; x += 32) {
+      const int rr = x / kChunks;
+      const int c = (x % kChunks) * 4;
+      if (c < m)
+        *reinterpret_cast<int4*>(keep + (size_t)(r0 + rr) * E + c0 + c) =
+            *reinterpret_cast<const int4*>(src + rr * kKeepLd + c);
+    }
+  };
+
+  // the step of sigmap.cc:1075-1078, as the reference orders it
+  const int nr = (warp == 0 && lane < nrows) ? n[r0 + lane] : 0;
   float last = 0.0f;
-  for (int j = 0; j < E; ++j) {
-    const size_t at = (size_t)j * R + r;
-    const float v = norm[at];
+  auto step = [&](float v, int j) {
     const bool k = (j < nr) && (j == 0 || fabsf(__fsub_rn(v, last)) > delta);
-    keep[at] = k ? 1 : 0;
     if (k) last = v;
+    return k ? 1 : 0;
+  };
+
+  if (warp == 1) {
+    fill(0);
+    cp_async_wait<0>();
   }
+  __syncthreads();
+  for (int tile = 0; tile < ntiles; ++tile) {
+    if (warp == 1) {
+      if (tile + 1 < ntiles) fill(tile + 1);
+      if (tile > 0) drain(tile - 1);
+      cp_async_wait<0>();
+    } else {
+      const int c0 = tile * kKeepTile;
+      const int m = min(kKeepTile, E - c0);
+      const float* in = tin + (tile & 1) * kKeepBuf + lane * kKeepLd;
+      int* mine = tout + (tile & 1) * kKeepBuf + lane * kKeepLd;
+      for (int c = 0; c < m; c += 4) {
+        const float4 v = *reinterpret_cast<const float4*>(in + c);
+        int4 k;
+        k.x = step(v.x, c0 + c);
+        k.y = step(v.y, c0 + c + 1);
+        k.z = step(v.z, c0 + c + 2);
+        k.w = step(v.w, c0 + c + 3);
+        *reinterpret_cast<int4*>(mine + c) = k;
+      }
+    }
+    // tile + 1 is in and tile's flags are out, for both warps
+    __syncthreads();
+  }
+  if (warp == 1) drain(ntiles - 1);
 }
 
 }  // namespace
@@ -219,10 +299,11 @@ extern "C" int sig_peaks_launch(const float* t1, const float* t2,
 extern "C" int sig_compress_keep_launch(const float* norm, const int* n, int R,
                                         int E, float delta, int* keep,
                                         void* stream) {
-  if (R <= 0) return 0;
-  const int threads = 128;
-  const int blocks = (R + threads - 1) / threads;
-  compress_keep_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+  if (R <= 0 || E <= 0) return 0;
+  if (E % 4 != 0 || ((size_t)norm | (size_t)keep) % 16 != 0)
+    return 1;  // cudaErrorInvalidValue: the copies are 16 bytes each
+  const int blocks = (R + kKeepRows - 1) / kKeepRows;
+  compress_keep_kernel<<<blocks, 64, kKeepSmem, (cudaStream_t)stream>>>(
       norm, n, R, E, delta, keep);
   return (int)cudaGetLastError();
 }

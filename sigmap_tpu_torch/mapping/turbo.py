@@ -60,8 +60,10 @@ class TurboParams:
 
     def check(self, device) -> None:
         """Raise ValueError for shapes the kernels of ``device`` cannot
-        take: on a GPU the fused chainer holds a read's RING + S * K anchor
-        rows in shared memory (at RING 768 and K 8, S * K <= 11,744)."""
+        take.  On a GPU the fused chainer holds a read's ring in shared
+        memory beside a window of at least K anchor rows (any S * K is
+        taken), so a RING of more than ``max_ring(K)`` slots, some 7,200, is
+        refused."""
         if torch.device(device).type == "cuda":
             try:
                 check_fits(self.RING + self.S * self.K, self.RING, self.RING,
@@ -423,11 +425,13 @@ _NC_BUCKETS = (1, 2, 3, 4, 6, 8, 12, 16, 24, 30)
 
 class TurboMapper:
     """Streaming mapper driving turbo_round over device-resident batches of
-    ``runtime.read_batch`` reads on an explicit ``device``."""
+    ``runtime.read_batch`` reads on an explicit ``device``.  ``oracle`` is
+    a rescue oracle of the same index and configuration to share (another
+    mapper's ``_get_oracle()``), else it is built at first need."""
 
     def __init__(self, index: SignalIndex,
                  config: SigmapConfig = SigmapConfig(),
-                 params: TurboParams | None = None, *, device):
+                 params: TurboParams | None = None, *, device, oracle=None):
         self.device = torch.device(device)
         self.index = index
         self.cfg = config
@@ -440,7 +444,7 @@ class TurboMapper:
             cache_dir=config.runtime.sweep_cache_dir, materialize=True,
         )
         self.store = tile_store_from_sweep(sw, self.device)
-        self._oracle = None
+        self._oracle = oracle
         self._oracle_lock = threading.Lock()
         self._oracle_kicked = False
         self._rescue_pool = (
@@ -559,8 +563,7 @@ class TurboMapper:
                         "warning: turbo capacity overflow with rescue "
                         f"DISABLED [match={bool(ovf_h[0])} "
                         f"seeds={bool(ovf_h[1])}]; raise TurboParams.K / "
-                        "TurboParams.S (TurboParams.check gives the GPU's "
-                        "limit on S * K) or anchors are dropped",
+                        "TurboParams.S or anchors are dropped",
                         file=sys.stderr,
                     )
                     self._ovf_warned = True

@@ -4,11 +4,13 @@ CUDA source: ``sigmap_tpu_torch/csrc/chain_fused.cu``; it replaces
 ``sigmap_tpu/ops/chain_fused.py:_kernel`` (via ``chain_fused``).  The
 wrapper runs the plain version on a CPU tensor and launches the kernel on a
 CUDA tensor.  One launch covers every read: the reference's fixed-grid
-chunking (``FIXED_G``) has no counterpart.  The kernel keeps a read's anchor
-rows and ring in shared memory (16 B a row, 32 B a ring slot), so on a CUDA
-tensor a call whose read does not fit a block's ``SMEM_LIMIT`` bytes is
-refused (``check_fits``): at ring 768 and kb 8 that is more than 11,744
-new anchor rows beside the 768 carried ones.  The plain version takes any size.
+chunking (``FIXED_G``) has no counterpart.  A block holds a read's ring in
+shared memory (32 B a slot) beside its anchor rows (16 B a row): the whole
+read when it fits a block's ``SMEM_LIMIT`` bytes, else windows of rows
+streamed through two buffers, with a per-read scratch in device memory for
+the selection passes.  So any A is taken; on a CUDA tensor only a ring that
+does not fit beside a window of kb rows is refused (``check_fits``: more than
+``max_ring(kb)`` slots, some 7,200).  The plain version takes any size.
 
 Layouts are the reference's: anchors [A, B] (rows 0..CARRY-1 carried,
 then qpos-major seed slots), carried chain state [CARRY, B], outputs
@@ -26,33 +28,70 @@ from ..config import ChainingConfig
 
 NEG = -1.0e30
 SMEM_LIMIT = 232_448   # shared memory a block can use on an H100 (227 KB)
+SM_SMEM = 233_472      # shared memory of one H100 SM (228 KB)
+_BLOCK_RESERVED = 1024  # of an SM's shared memory, reserved for each block
+_FIXED_SMEM = 1696     # the kernel's row, candidate and reduction buffers
 
 
-def shared_memory_bytes(A: int, CARRY: int, ring: int, kb: int) -> int:
+def shared_memory_bytes(A: int, CARRY: int, ring: int, kb: int,
+                        window_rows: int = 0) -> int:
     """Dynamic shared memory the kernel's block (one read) needs: the twin
-    of ``smem_bytes`` in the CUDA source (``sig_chain_fused_smem``): the
-    ring's two 16-byte arrays, the four staged anchor fields, one mask a
-    kb-row block, and the fixed row, candidate and reduction buffers."""
-    return 32 * ring + 16 * A + 4 * ((A - CARRY) // kb + 1) + 1696
+    of ``smem_bytes`` in the CUDA source (``sig_chain_fused_smem``).  The
+    ring's two 16-byte arrays and the fixed buffers, then either the whole
+    read (``window_rows`` 0: four anchor fields a row and one mask a kb-row
+    block) or two windows of ``window_rows`` rows and the masks of one,
+    whatever A."""
+    if window_rows == 0:
+        return 32 * ring + 16 * A + 4 * ((A - CARRY) // kb + 1) + _FIXED_SMEM
+    return 32 * ring + 32 * window_rows + 4 * (window_rows // kb + 1) \
+        + _FIXED_SMEM
 
 
-def max_new_rows(CARRY: int, ring: int, kb: int) -> int:
-    """The most new anchor rows a read (a multiple of kb) the kernel can
-    hold beside ``CARRY`` carried rows and a ring of ``ring`` slots."""
-    room = SMEM_LIMIT - shared_memory_bytes(CARRY, CARRY, ring, kb)
-    return max(0, room * kb // (16 * kb + 4) // kb * kb)
+def largest_window(ring: int, kb: int) -> int:
+    """The most rows (a multiple of kb) a window can hold beside a ring of
+    ``ring`` slots; 0 if not even kb rows fit."""
+    room = SMEM_LIMIT - 32 * ring - 4 - _FIXED_SMEM
+    return max(0, room // (32 * kb + 4)) * kb
 
 
-def check_fits(A: int, CARRY: int, ring: int, kb: int) -> None:
-    """Raise ValueError if the kernel cannot hold a read of ``A`` anchor
-    rows (``CARRY`` of them carried) and a ring of ``ring`` slots."""
-    need = shared_memory_bytes(A, CARRY, ring, kb)
+def default_window(ring: int, kb: int, blocks_per_sm: int = 3) -> int:
+    """The window a read that does not fit whole gets: the most rows (a
+    multiple of kb) with which ``blocks_per_sm`` blocks share an SM, as the
+    whole reads of the operating point do; the largest window that fits
+    when not even kb rows leave room for that many blocks."""
+    room = SM_SMEM // blocks_per_sm - _BLOCK_RESERVED - 32 * ring - 4 \
+        - _FIXED_SMEM
+    rows = max(0, room // (32 * kb + 4)) * kb
+    return rows if rows else max(largest_window(ring, kb), kb)
+
+
+def max_ring(kb: int) -> int:
+    """The largest ring that fits beside the smallest window (kb rows)."""
+    return (SMEM_LIMIT - _FIXED_SMEM - 32 * kb - 4 * 2) // 32
+
+
+def check_fits(A: int, CARRY: int, ring: int, kb: int,
+               window_rows: int | None = None) -> int:
+    """The window the kernel takes a read of ``A`` anchor rows (``CARRY`` of
+    them carried) in, beside a ring of ``ring`` slots: 0 for the whole read
+    at once, which every read that fits gets unless ``window_rows`` is given,
+    else ``window_rows`` or ``default_window``.  Raises ValueError if that
+    does not fit a block's shared memory."""
+    if window_rows is None:
+        if shared_memory_bytes(A, CARRY, ring, kb) <= SMEM_LIMIT:
+            return 0
+        window_rows = default_window(ring, kb)
+    elif window_rows < kb or window_rows % kb:
+        raise ValueError(f"chain_fused: window_rows={window_rows} must be a "
+                         f"positive multiple of kb={kb}")
+    need = shared_memory_bytes(A, CARRY, ring, kb, window_rows)
     if need > SMEM_LIMIT:
         raise ValueError(
-            f"chain_fused: {A} anchor rows a read and a ring of {ring} need "
-            f"{need} bytes of shared memory on the GPU, a block has "
-            f"{SMEM_LIMIT}: at most {max_new_rows(CARRY, ring, kb)} new rows "
-            f"fit beside this ring and {CARRY} carried rows")
+            f"chain_fused: a ring of {ring} slots and windows of "
+            f"{window_rows} rows need {need} bytes of shared memory "
+            f"on the GPU, a block has {SMEM_LIMIT}: at kb={kb} at most "
+            f"{max_ring(kb)} ring slots fit beside the smallest window")
+    return window_rows
 
 
 def _push(ring, cur, vals, v, RING: int):
@@ -189,8 +228,13 @@ def chain_fused_plain(a_t, a_q, a_d, a_g, c_score, c_stt, c_stq, c_n,
 
 def chain_fused(a_t, a_q, a_d, a_g, c_score, c_stt, c_stq, c_n, c_sumd,
                 radius: float, dim: int = 6, ring: int = 64,
-                cfg: ChainingConfig = ChainingConfig(), kb: int = 1):
-    """B4 wrapper (see the module docstring for layouts)."""
+                cfg: ChainingConfig = ChainingConfig(), kb: int = 1,
+                window_rows: int | None = None):
+    """B4 wrapper (see the module docstring for layouts).  ``window_rows``
+    sets the kernel's window of new rows, a multiple of kb; by default a
+    read that fits is taken whole and any other in ``default_window``.
+    Only tests and chip_smoke.py set it, to cross many windows at a small
+    size or to time another window; the results do not depend on it."""
     dev = a_t.device
     if dev.type == "cpu":
         return chain_fused_plain(a_t, a_q, a_d, a_g, c_score, c_stt, c_stq,
@@ -212,18 +256,21 @@ def chain_fused(a_t, a_q, a_d, a_g, c_score, c_stt, c_stq, c_n, c_sumd,
                 or x.device != dev):
             raise ValueError("chain_fused: inputs must be contiguous [rows, B]"
                              " i32/f32 tensors on one device")
-    check_fits(A, CARRY, ring, kb)
+    W = check_fits(A, CARRY, ring, kb, window_rows)
     lib = kernels()
     f32, i32 = torch.float32, torch.int32
+    # windowed: each read's valid rows' (t, g, chain start, score)
+    scratch = torch.empty((B, A, 4), dtype=i32, device=dev) if W else None
     sum_f = torch.empty((8, B), dtype=f32, device=dev)
     sum_i = torch.empty((8, B), dtype=i32, device=dev)
     outs = [torch.empty((ring, B), dtype=dt, device=dev)
             for dt in (i32, i32, i32, f32, i32, i32, i32, f32)]
     err = lib.sig_chain_fused_launch(
-        *(x.data_ptr() for x, _, _ in ins), A, B, CARRY, ring, kb,
+        *(x.data_ptr() for x, _, _ in ins), A, B, CARRY, ring, kb, W,
         float(radius), dim, cfg.max_gap_length, cfg.max_target_gap_length,
         float(cfg.max_gap_scale), float(cfg.min_gap_scale),
-        sum_f.data_ptr(), sum_i.data_ptr(), *(o.data_ptr() for o in outs),
+        scratch.data_ptr() if W else None, sum_f.data_ptr(), sum_i.data_ptr(),
+        *(o.data_ptr() for o in outs),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     check(err, "chain_fused")

@@ -22,6 +22,15 @@ from .events_kernels import compress_keep, detect_peaks
 FLT_MIN = float(np.float32(1.1754944e-38))
 
 
+def _row_sum(x):
+    """Row sums [B, 1] of f32 ``x``, added in f64 and rounded once to f32,
+    so that a GPU, which adds in another order than the CPU, gives the same
+    bits: f64 sums of pA samples and of event means (f32 in (30, 200)) are
+    exact in any order, and a sum of their squared deviations is off by
+    some 2^-19 of an f32 step at most, which the rounding hides."""
+    return x.to(torch.float64).sum(dim=1, keepdim=True).to(torch.float32)
+
+
 def batch_tstat(chunks, lengths, w: int):
     """Two-window Welch t-statistic [B, C] over centered local windows
     (events.py:45-93, including its documented divergence from the C++
@@ -94,9 +103,11 @@ def events_means_batch(peaks, n_peaks, chunks, lengths, max_events: int):
     in_len = t < L
     x = torch.where(in_len, chunks, 0.0).to(torch.float32)
     nf = torch.clamp(L.to(torch.float32), min=1.0)
-    cmean = x.sum(dim=1, keepdim=True) / nf
+    cmean = _row_sum(x) / nf
     xc = torch.where(in_len, x - cmean, 0.0)
-    ps = F.pad(torch.cumsum(xc, dim=1), (1, 0))
+    # each prefix added in f64 and rounded once, as _row_sum
+    ps = F.pad(torch.cumsum(xc.to(torch.float64), dim=1)
+               .to(torch.float32), (1, 0))
     # padding events (j >= num_events) can point one past ps; they are
     # masked below, so their gather index is only kept in range
     seg = (torch.gather(ps, 1, torch.clamp(end, max=C))
@@ -110,9 +121,9 @@ def zscore_masked(x, n):
     """Masked z-score along axis 1: population mean, (n-1) variance."""
     valid = torch.arange(x.shape[1], device=x.device)[None, :] < n[:, None]
     nf = n.to(torch.float32)[:, None]
-    mean = torch.where(valid, x, 0.0).sum(dim=1, keepdim=True) / nf
+    mean = _row_sum(torch.where(valid, x, 0.0)) / nf
     d = torch.where(valid, x - mean, 0.0)
-    sd = torch.sqrt((d * d).sum(dim=1, keepdim=True) / (nf - 1.0))
+    sd = torch.sqrt(_row_sum(d * d) / (nf - 1.0))
     return torch.where(valid, (x - mean) / sd, 0.0)
 
 

@@ -76,6 +76,17 @@ def detect_peaks_plain(tstat1, tstat2, lengths, cfg: EventDetectorConfig):
     return out.permute(1, 0, 2).reshape(R, 2 * C)
 
 
+def _rows16(x, pad: int):
+    """`x` as contiguous f32 rows that the kernels' 16-byte copies take:
+    padded with `pad` zero columns (rows of a length no multiple of 4), or
+    copied if it starts off a 16-byte boundary."""
+    x = x.to(torch.float32)
+    if pad:
+        return torch.nn.functional.pad(x, (0, pad))
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
 def detect_peaks(tstat1, tstat2, lengths, cfg: EventDetectorConfig):
     """B1 wrapper: [R, C] f32 t-stats + [R] lengths -> [R, 2C] i32."""
     dev = tstat1.device
@@ -92,15 +103,7 @@ def detect_peaks(tstat1, tstat2, lengths, cfg: EventDetectorConfig):
     # that starts off a 16-byte boundary is copied
     pad = -C % 4
     lens = lengths.to(torch.int32).clamp(max=C).contiguous()
-
-    def rows(x):
-        x = x.to(torch.float32)
-        if pad:
-            return torch.nn.functional.pad(x, (0, pad))
-        x = x.contiguous()
-        return x if x.data_ptr() % 16 == 0 else x.clone()
-
-    t1, t2 = rows(tstat1), rows(tstat2)
+    t1, t2 = _rows16(tstat1, pad), _rows16(tstat2, pad)
     out = torch.empty((R, 2 * (C + pad)), dtype=torch.int32, device=dev)
     lib = kernels()
     err = lib.sig_peaks_launch(
@@ -140,14 +143,20 @@ def compress_keep(norm, n, delta: float):
     R, E = norm.shape
     if n.shape != (R,):
         raise ValueError("compress_keep: shape mismatch")
-    nt = norm.to(torch.float32).t().contiguous()      # [E, R]
+    # the kernel reads [R, E] and writes [R, E] as they are: no transpose.
+    # Its copies are 16 bytes each: rows of another length are padded to a
+    # multiple of 4 events (never kept where they count: the mask is cut
+    # back to E, and a padded event lies after every real one), and a view
+    # that starts off a 16-byte boundary is copied
+    pad = -E % 4
+    x = _rows16(norm, pad)
     nn = n.to(torch.int32).contiguous()
-    keep = torch.empty((E, R), dtype=torch.int32, device=dev)
+    keep = torch.empty((R, E + pad), dtype=torch.int32, device=dev)
     lib = kernels()
     err = lib.sig_compress_keep_launch(
-        nt.data_ptr(), nn.data_ptr(), R, E, float(delta), keep.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
+        x.data_ptr(), nn.data_ptr(), R, E + pad, float(delta),
+        keep.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
     )
     check(err, "compress_keep")
     LAUNCHES["compress_keep"] += 1
-    return keep.t()
+    return keep[:, :E].contiguous() if pad else keep

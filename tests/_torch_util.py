@@ -24,15 +24,6 @@ PARAMS = dict(S=256, K=16, RING=64, TILE=256)
 
 
 @pytest.fixture
-def cuda_device():
-    """The first CUDA device; the test is skipped where there is none (the
-    decision is taken when the test runs, never at import)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    return torch.device("cuda")
-
-
-@pytest.fixture
 def jax_native_from_source(tmp_path_factory, monkeypatch):
     """For the length of the test, sigmap_tpu.native runs a build of its own
     source, native/core.cc, made with the port's compiler flags

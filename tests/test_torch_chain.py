@@ -21,11 +21,10 @@ import jax.numpy as jnp
 from sigmap_tpu.config import ChainingConfig
 from sigmap_tpu.ops.chain_fused import chain_fused, chain_fused_ref
 from sigmap_tpu_torch.ops.chain_fused import chain_fused as port_chain_fused
-from _torch_util import cuda_device  # noqa: F401 - fixture
 from test_chain_fused import DIM, RADIUS, _random_case
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-from chip_smoke import chain_adversarial  # noqa: E402
+from chip_smoke import ADV_WINDOW_ROWS, chain_adversarial  # noqa: E402
 
 RTOL = 1e-5
 
@@ -130,53 +129,88 @@ def test_port_chain_fused_rejects_other_devices():
 
 
 def test_port_chain_fused_refuses_reads_beyond_shared_memory():
-    """The kernel holds a read's anchors and ring in a block's shared
-    memory: the wrapper's check takes the main path's shape, refuses the
-    first size that does not fit, and TurboParams.check names the limit on
-    a GPU only (the plain version on the CPU takes any size)."""
+    """The kernel holds a read's ring in a block's shared memory beside its
+    anchor rows: the whole read where it fits (the operating point, at its
+    earlier size), else windows of rows whose size does not grow with A, by
+    default the largest with which three blocks share an SM.
+    Only a ring too large for the smallest window (kb rows) is refused, with
+    the largest ring that fits named, by the wrapper's check and by
+    TurboParams.check on a GPU (the plain version on the CPU takes any
+    size)."""
     from sigmap_tpu_torch.mapping.turbo import TurboParams
-    from sigmap_tpu_torch.ops.chain_fused import (SMEM_LIMIT, check_fits,
-                                                  max_new_rows,
+    from sigmap_tpu_torch.ops.chain_fused import (SM_SMEM, SMEM_LIMIT,
+                                                  check_fits, default_window,
+                                                  largest_window, max_ring,
                                                   shared_memory_bytes)
 
     assert shared_memory_bytes(768 + 256 * 8, 768, 768, 8) == 72_356
-    for carry, ring, kb in ((768, 768, 8), (768, 768, 1), (16, 16, 32)):
-        n = max_new_rows(carry, ring, kb)
-        assert n % kb == 0
-        check_fits(carry + n, carry, ring, kb)
-        assert shared_memory_bytes(carry + n, carry, ring, kb) <= SMEM_LIMIT
-        with pytest.raises(ValueError, match=f"at most {n} new rows"):
-            check_fits(carry + n + kb, carry, ring, kb)
-    assert max_new_rows(768, 768, 8) == 11_744
+    assert check_fits(768 + 256 * 8, 768, 768, 8) == 0
+    A = 768 + 1024 * 16
+    W = check_fits(A, 768, 768, 16)
+    assert W == default_window(768, 16) and W % 16 == 0
+    assert shared_memory_bytes(A, 768, 768, 16) > SMEM_LIMIT
+    smem = shared_memory_bytes(A, 768, 768, 16, W)
+    assert 3 * (smem + 1024) <= SM_SMEM < 3 * (smem + 32 * 16 + 4 + 1024)
+    big_w = largest_window(768, 16)
+    assert big_w > W
+    big_smem = shared_memory_bytes(A, 768, 768, 16, big_w)
+    assert big_smem <= SMEM_LIMIT < big_smem + 32 * 16 + 4
+    for more in (16, 10_000 * 16, 1 << 20):
+        assert check_fits(A + more, 768, 768, 16) == W
+        assert shared_memory_bytes(A + more, 768, 768, 16, W) == smem
+    assert check_fits(96, 16, 16, 8, window_rows=16) == 16
+    with pytest.raises(ValueError, match="multiple of kb"):
+        check_fits(96, 16, 16, 8, window_rows=12)
+    for kb in (1, 8, 16, 32):
+        ring = max_ring(kb)
+        assert check_fits(ring + 64 * kb, ring, ring, kb) == kb
+        assert default_window(ring, kb) == largest_window(ring, kb) == kb
+        with pytest.raises(ValueError, match=f"at most {ring} ring slots"):
+            check_fits(ring + 1 + 64 * kb, ring + 1, ring + 1, kb)
     TurboParams().check("cuda")
-    TurboParams(S=1024, K=8).check("cuda")
-    TurboParams(S=1024, K=16).check("cpu")
-    with pytest.raises(ValueError, match=r"TurboParams\(S=1024, K=16"):
-        TurboParams(S=1024, K=16).check("cuda")
+    TurboParams(S=1024, K=16).check("cuda")
+    TurboParams(S=1024, K=32).check("cuda")
+    big = max_ring(8) + 1
+    TurboParams(RING=big).check("cpu")
+    with pytest.raises(ValueError, match=rf"TurboParams\(S=256, K=8, "
+                                         rf"RING={big}"):
+        TurboParams(RING=big).check("cuda")
 
 
-def _kernel_equals_plain(args, dev, **kw):
-    from sigmap_tpu_torch.ops.chain_fused import chain_fused_plain
-
-    args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in args]
-    k = port_chain_fused(*args, **kw)
-    p = chain_fused_plain(*args, **kw)
-    for a, b in zip([k[0], k[1], *k[2]], [p[0], p[1], *p[2]]):
-        assert torch.equal(a, b)
-
-
-@pytest.mark.gpu
-def test_chain_fused_kernel_matches_plain_on_gpu(cuda_device):
-    rng = np.random.default_rng(3)
-    _kernel_equals_plain(_random_case(rng, 64 + 8 * 16, 70, 64), cuda_device,
-                         radius=RADIUS, dim=DIM, ring=64,
-                         cfg=ChainingConfig(), kb=8)
-
-
-@pytest.mark.gpu
 @pytest.mark.parametrize("kb", [1, 4, 8])
-def test_chain_fused_kernel_matches_plain_on_adversarial_reads(cuda_device,
-                                                               kb):
+def test_port_chain_fused_adversarial_windows(kb):
+    """chip_smoke.py's reads 8-12, whose rules cross the kernel's windows of
+    ADV_WINDOW_ROWS new rows (the card holds the windowed kernel to the
+    plain version on them), against the JAX package's numpy twin; what each
+    read sets up holds at every kb (one chain anchor an 8-row block)."""
     args, kw = chain_adversarial(0)
-    _kernel_equals_plain(args, cuda_device, cfg=ChainingConfig(), kb=kb,
-                         **kw)
+    kw = dict(kw, cfg=ChainingConfig(), kb=kb)
+    got = _port(args, **kw)
+    _check(got, *chain_fused_ref(*args, **kw))
+    sum_f, sum_i, carry = got
+    ring = kw["ring"]
+    W = ADV_WINDOW_ROWS
+    assert (args[3].shape[0] - ring) % W == 0 and W % kb == 0
+    t = args[0]
+
+    def window(b, te):       # the window of the new row of read b ending at te
+        rows = np.nonzero((t[ring:, b] == te) & (args[3][ring:, b] >= 0))[0]
+        return int(rows[0]) // W
+
+    # 8: the ring wrapped while the pushes crossed windows 0 -> 1 -> 2
+    assert (args[3][ring:, 8] >= 0).sum() > 2 * ring
+    assert window(8, sum_i[2, 8]) == 2
+    # 9: chains 1, 2, 3 of 42, 32, 28 end in windows 0, 1 and 3
+    np.testing.assert_array_equal(sum_f[[0, 1, 3], 9], [42, 32, 28])
+    assert sum_i[0, 9] == 0 and window(9, sum_i[2, 9]) == 0
+    # 10: equal chains of 32 in windows 0 and 2: the one in window 0 leads
+    assert sum_f[0, 10] == sum_f[1, 10] == 32 and sum_i[0, 10] == 0
+    # 11: one chain through windows 0 and 2, window 1 all invalid: its
+    # carried seed (n 3) and four new anchors
+    assert (args[3][ring + W:ring + 2 * W, 11] < 0).all()
+    assert sum_f[0, 11] == 44 and sum_i[5, 11] == 3 + 4
+    assert window(11, sum_i[2, 11]) == 2
+    # 12: chain 1 starts at its carried rows (500); the carried row of 30
+    # on the other strand inside its interval is no chain 2 (12 is)
+    assert sum_i[1, 12] == 500 and sum_f[0, 12] == 46
+    assert sum_f[1, 12] == 12

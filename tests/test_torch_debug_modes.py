@@ -13,7 +13,6 @@ import io
 
 import numpy as np
 import pytest
-import torch
 
 from sigmap_tpu import debug_modes as jdm
 from sigmap_tpu.config import SigmapConfig
@@ -21,10 +20,8 @@ from sigmap_tpu.io.fast5 import write_multi_fast5
 from sigmap_tpu.io.signals import load_all_read_signals
 from sigmap_tpu.signal import events_ref as jref
 from sigmap_tpu.synth import genome_to_fasta_str, random_genome, simulate_reads
-from sigmap_tpu_torch import LAUNCHES
 from sigmap_tpu_torch import debug_modes as tdm
 from sigmap_tpu_torch.signal import events_ref as tref
-from _torch_util import cuda_device  # noqa: F401 - fixture
 
 
 @pytest.fixture(scope="module")
@@ -130,16 +127,3 @@ def test_empty_pairs_answer_like_sdtw_np():
     for k, (tt, qq) in enumerate([(t, e), (e, t), (t, t)]):
         nb, ne = sdtw_np(tt, qq)
         assert (float(best[k]), int(end[k])) == (float(np.float32(nb)), ne)
-
-
-@pytest.mark.gpu
-def test_align_modes_on_gpu_match_cpu(work, cuda_device):
-    ref, pore, sig, _ = work
-    for mode in ("dtw_align", "cwt_align"):
-        before = LAUNCHES["sdtw"]
-        got = getattr(tdm, mode)(ref, pore, sig, out=io.StringIO(),
-                                 device=cuda_device)
-        torch.cuda.synchronize()
-        assert LAUNCHES["sdtw"] > before
-        assert got == getattr(tdm, mode)(ref, pore, sig, out=io.StringIO(),
-                                         device="cpu")

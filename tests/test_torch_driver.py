@@ -20,16 +20,13 @@ features differ by ~3e-5, tests/test_torch_events.py), so
 import dataclasses
 
 import pytest
-import torch
 
 from sigmap_tpu.config import RuntimeConfig, SigmapConfig
 from sigmap_tpu.index.build import build_index
 from sigmap_tpu.io.fasta import ReferenceSequence
 from sigmap_tpu.io.signals import ReadSignal, dac_to_pa
 from sigmap_tpu.synth import simulate_reads
-from sigmap_tpu_torch import LAUNCHES
 from sigmap_tpu_torch.mapping import driver as port
-from _torch_util import cuda_device  # noqa: F401 - fixture
 
 TEST_CFG = SigmapConfig(
     runtime=RuntimeConfig(
@@ -109,20 +106,3 @@ def test_num_threads_parity(setup):
         a["tags"] = [t for t in a["tags"].split("\t") if t[:2] != "mt"]
         b["tags"] = [t for t in b["tags"].split("\t") if t[:2] != "mt"]
         assert a == b
-
-
-@pytest.mark.gpu
-def test_mapper_on_gpu_matches_cpu(setup, cuda_device):
-    idx, _, signals = setup
-    for mode in ("streaming_map", "map_reads"):
-        before = LAUNCHES["peaks"]
-        got = getattr(port.Mapper(idx, TEST_CFG, device=cuda_device),
-                      mode)(signals)
-        assert LAUNCHES["peaks"] > before
-        want = getattr(port.Mapper(idx, TEST_CFG, device="cpu"),
-                       mode)(signals)
-        for g, w in zip(got, want):
-            g, w = dataclasses.asdict(g), dataclasses.asdict(w)
-            g["tags"] = [t for t in g["tags"].split("\t") if t[:2] != "mt"]
-            w["tags"] = [t for t in w["tags"].split("\t") if t[:2] != "mt"]
-            assert g == w

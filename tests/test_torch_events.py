@@ -27,10 +27,9 @@ from sigmap_tpu.signal.events_pallas import (
 )
 from sigmap_tpu_torch.signal import events as tev
 from sigmap_tpu_torch.signal import events_kernels as tk
-from _torch_util import cuda_device  # noqa: F401 - fixture
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-from chip_smoke import peaks_adversarial  # noqa: E402
+from chip_smoke import compress_adversarial, peaks_adversarial  # noqa: E402
 
 TSTAT_RTOL = 1e-5       # |port - jax| / (|jax| + 1) for the t-statistics
 FEAT_ATOL = 1e-5        # features are z-scores of order 1
@@ -131,6 +130,32 @@ def test_compress_keep_plain_matches_pallas(case):
     assert port.sum() > len(ne)
 
 
+def test_compress_keep_plain_matches_pallas_on_adversarial_rows():
+    """chip_smoke.py's B2 rows (n = 0, 1, E; E off the kernel's 64-event
+    tile and no multiple of 4, R off a warp's 32 rows; equal runs; steps of
+    exactly delta and one ulp either side; negative zero; a kept value that
+    lasts across a tile boundary) against the JAX package's Pallas kernel
+    in interpret mode, exactly; on the card test_torch_gpu.py holds the
+    kernel to the plain version on the same rows."""
+    norm, n, delta = compress_adversarial(0)
+    R, E = norm.shape
+    assert R % 32 and E % 64 and E % 4
+    pal = np.asarray(compress_keep_pallas(norm, n, delta, interpret=True))
+    port = tk.compress_keep(torch.from_numpy(norm), torch.from_numpy(n),
+                            delta).numpy()
+    np.testing.assert_array_equal(port, pal)
+    assert port[0].sum() == 0 and port[1].tolist() == [1] + [0] * (E - 1)
+    assert port[8].all()
+    # row 4: delta and one ulp below it, up and down from the last kept
+    # value, are not kept; one ulp above it is, down and then up
+    assert port[4, :9].tolist() == [1, 0, 0, 0, 0, 1, 1, 1, 0]
+    # rows 5, 6: negative zero as the first kept value and against it
+    assert port[5, :5].tolist() == [1, 0, 0, 0, 1]
+    assert port[6, :5].tolist() == [1, 0, 0, 1, 1]
+    # row 7: 0.0 kept at event 63 decides events 64-73 (tile 1)
+    assert port[7, 63:75].tolist() == [1] + [0] * 9 + [1, 1]
+
+
 @pytest.mark.parametrize("case", sorted(CASES))
 @pytest.mark.parametrize("w", [3, 6])
 def test_batch_tstat_matches(case, w):
@@ -174,30 +199,3 @@ def test_compact_nonzero_matches():
         pp, npp = tev.compact_nonzero(torch.from_numpy(v), cap)
         np.testing.assert_array_equal(pp.numpy(), np.asarray(pj))
         np.testing.assert_array_equal(npp.numpy(), np.asarray(nj))
-
-
-@pytest.mark.gpu
-def test_event_kernels_match_plain_on_gpu(cuda_device):
-    sigs, lengths = _kernels_case()
-    cfg = EventDetectorConfig()
-    x = torch.from_numpy(sigs).to(cuda_device)
-    n = torch.from_numpy(lengths).to(cuda_device)
-    t1 = tev.batch_tstat(x, n, cfg.window_length1)
-    t2 = tev.batch_tstat(x, n, cfg.window_length2)
-    assert torch.equal(tk.detect_peaks(t1, t2, n, cfg),
-                       tk.detect_peaks_plain(t1, t2, n, cfg))
-    a1, a2, a_len = (torch.from_numpy(a).to(cuda_device)
-                     for a in peaks_adversarial(0))
-    for C in (a1.shape[1], a1.shape[1] // 4 * 4):   # padded rows, and as is
-        b1, b2 = a1[:, :C].contiguous(), a2[:, :C].contiguous()
-        b_len = a_len.clamp(max=C)
-        want = tk.detect_peaks_plain(b1, b2, b_len, cfg)
-        assert torch.equal(tk.detect_peaks(b1, b2, b_len, cfg), want)
-    # a contiguous view that starts 4 bytes off a 16-byte boundary
-    off = torch.cat([b1.new_zeros(1), b1.reshape(-1)])[1:].view(b1.shape)
-    assert off.data_ptr() % 16 and off.is_contiguous()
-    assert torch.equal(tk.detect_peaks(off, b2, b_len, cfg), want)
-    norm = torch.randn(64, 1024, device=cuda_device)
-    cnt = torch.randint(0, 1024, (64,), device=cuda_device, dtype=torch.int32)
-    assert torch.equal(tk.compress_keep(norm, cnt, 0.1).contiguous(),
-                       tk.compress_keep_plain(norm, cnt, 0.1))

@@ -1,0 +1,248 @@
+"""The port on the GPU: every CUDA kernel against its plain version, and the
+device paths of the exact engine, its radius search and the align modes
+against their CPU runs, exactly.
+
+Every case needs a CUDA device (``gpu`` mark, ``cuda_device`` fixture) and
+skips without one.  The file imports nothing of the JAX package, jax or
+h5py (its inputs come from tests/_torch_gpu_util.py and chip_smoke.py), so
+it runs where the card is:
+
+    python -m pytest -m gpu --noconftest tests/test_torch_gpu.py
+
+(``chip_smoke.py`` runs it so, and fails unless every case passes).
+"""
+
+import dataclasses
+import io
+import os
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from _torch_gpu_util import (  # noqa: F401 - fixtures
+    DIM, DRIVER_CFG, RADIUS, SEARCH_KW, SEARCH_RADIUS, SEARCH_TIGHT,
+    closest_k_queries, cuda_device, debug_work, driver_setup, gpu_genome,
+    gpu_pore, kernels_case, ragged_pairs, random_chain_case, search_setup,
+    sweep_index, uniform_pairs,
+)
+from sigmap_tpu_torch import LAUNCHES
+from sigmap_tpu_torch.config import ChainingConfig, EventDetectorConfig
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+from chip_smoke import (  # noqa: E402
+    ADV_WINDOW_ROWS, chain_adversarial, compress_adversarial,
+    peaks_adversarial,
+)
+
+pytestmark = pytest.mark.gpu
+
+# --- B4 (chain_fused) -------------------------------------------------------
+
+def _chain_equals_plain(args, dev, **kw):
+    from sigmap_tpu_torch.ops.chain_fused import chain_fused, chain_fused_plain
+
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in args]
+    plain_kw = {k: v for k, v in kw.items() if k != "window_rows"}
+    before = LAUNCHES["chain_fused"]
+    k = chain_fused(*args, **kw)
+    assert LAUNCHES["chain_fused"] == before + 1
+    p = chain_fused_plain(*args, **plain_kw)
+    for a, b in zip([k[0], k[1], *k[2]], [p[0], p[1], *p[2]]):
+        assert torch.equal(a, b)
+
+
+def test_chain_fused_kernel_matches_plain_on_gpu(cuda_device):
+    rng = np.random.default_rng(3)
+    _chain_equals_plain(random_chain_case(rng, 64 + 8 * 16, 70, 64),
+                        cuda_device, radius=RADIUS, dim=DIM, ring=64,
+                        cfg=ChainingConfig(), kb=8)
+
+
+@pytest.mark.parametrize("kb", [1, 4, 8])
+def test_chain_fused_kernel_matches_plain_on_adversarial_reads(cuda_device,
+                                                               kb):
+    args, kw = chain_adversarial(0)
+    _chain_equals_plain(args, cuda_device, cfg=ChainingConfig(), kb=kb, **kw)
+
+
+@pytest.mark.parametrize("kb", [1, 4, 8, 16])
+def test_chain_fused_kernel_matches_plain_in_windows(cuda_device, kb):
+    """chain_adversarial's reads in windows of ADV_WINDOW_ROWS new rows (4 a
+    read: the rules of reads 8-12 cross them) and of kb rows, the smallest
+    window."""
+    args, kw = chain_adversarial(0)
+    for w in (ADV_WINDOW_ROWS, kb):
+        _chain_equals_plain(args, cuda_device, cfg=ChainingConfig(), kb=kb,
+                            window_rows=w, **kw)
+
+
+def test_chain_fused_kernel_matches_plain_on_long_reads(cuda_device):
+    """Random reads of 640 new rows: whole, in windows of 64 rows (10 a
+    read) and of 200 (a short last window)."""
+    from sigmap_tpu_torch.ops.chain_fused import check_fits
+
+    rng = np.random.default_rng(11)
+    args = random_chain_case(rng, 64 + 8 * 80, 40, 64)
+    assert check_fits(64 + 8 * 80, 64, 64, 8) == 0
+    for w in (None, 64, 200):
+        _chain_equals_plain(args, cuda_device, radius=RADIUS, dim=DIM,
+                            ring=64, cfg=ChainingConfig(), kb=8,
+                            window_rows=w)
+
+
+# --- B1 / B2 (events) -------------------------------------------------------
+
+def test_event_kernels_match_plain_on_gpu(cuda_device):
+    from sigmap_tpu_torch.signal import events as tev
+    from sigmap_tpu_torch.signal import events_kernels as tk
+
+    sigs, lengths = kernels_case()
+    cfg = EventDetectorConfig()
+    x = torch.from_numpy(sigs).to(cuda_device)
+    n = torch.from_numpy(lengths).to(cuda_device)
+    t1 = tev.batch_tstat(x, n, cfg.window_length1)
+    t2 = tev.batch_tstat(x, n, cfg.window_length2)
+    assert torch.equal(tk.detect_peaks(t1, t2, n, cfg),
+                       tk.detect_peaks_plain(t1, t2, n, cfg))
+    a1, a2, a_len = (torch.from_numpy(a).to(cuda_device)
+                     for a in peaks_adversarial(0))
+    for C in (a1.shape[1], a1.shape[1] // 4 * 4):   # padded rows, and as is
+        b1, b2 = a1[:, :C].contiguous(), a2[:, :C].contiguous()
+        b_len = a_len.clamp(max=C)
+        want = tk.detect_peaks_plain(b1, b2, b_len, cfg)
+        assert torch.equal(tk.detect_peaks(b1, b2, b_len, cfg), want)
+    # a contiguous view that starts 4 bytes off a 16-byte boundary
+    off = torch.cat([b1.new_zeros(1), b1.reshape(-1)])[1:].view(b1.shape)
+    assert off.data_ptr() % 16 and off.is_contiguous()
+    assert torch.equal(tk.detect_peaks(off, b2, b_len, cfg), want)
+    norm = torch.randn(64, 1024, device=cuda_device)
+    cnt = torch.randint(0, 1024, (64,), device=cuda_device, dtype=torch.int32)
+    assert torch.equal(tk.compress_keep(norm, cnt, 0.1).contiguous(),
+                       tk.compress_keep_plain(norm, cnt, 0.1))
+
+
+def test_compress_keep_kernel_matches_plain_on_adversarial_rows(cuda_device):
+    """B2 on compress_adversarial's rows: E = 203 (padded rows), its first
+    200 events (as they are), and a view 4 bytes off a 16-byte boundary;
+    the mask comes back as a contiguous [R, E] i32 tensor."""
+    from sigmap_tpu_torch.signal import events_kernels as tk
+
+    norm, n, delta = compress_adversarial(0)
+    x = torch.from_numpy(norm).to(cuda_device)
+    c = torch.from_numpy(n).to(cuda_device)
+    for E in (x.shape[1], x.shape[1] // 4 * 4):
+        y = x[:, :E].contiguous()
+        before = LAUNCHES["compress_keep"]
+        got = tk.compress_keep(y, c, delta)
+        assert LAUNCHES["compress_keep"] == before + 1
+        assert got.shape == y.shape and got.dtype == torch.int32
+        assert got.is_contiguous()
+        want = tk.compress_keep_plain(y, c, delta)
+        assert torch.equal(got, want)
+    off = torch.cat([y.new_zeros(1), y.reshape(-1)])[1:].view(y.shape)
+    assert off.data_ptr() % 16 and off.is_contiguous()
+    assert torch.equal(tk.compress_keep(off, c, delta), want)
+
+
+# --- B3 (sweep) -------------------------------------------------------------
+
+def test_sweep_kernel_matches_plain_on_gpu(sweep_index, cuda_device):
+    from sigmap_tpu_torch.index.sweep import SweepIndex
+    from sigmap_tpu_torch.mapping.sweep_search import prepare_round
+    from sigmap_tpu_torch.ops.sweep_kernel import (
+        sweep_search, sweep_search_plain,
+    )
+
+    cfg, idx = sweep_index
+    sw = SweepIndex.build(idx, 0.8, tile=256)
+    qs, K = closest_k_queries(idx, sw.n_windows)
+    t = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda_device) for a in
+         (qs, sw.cum, sw.tiles, sw.meta, sw.rot, sw.mu, sw.origin)]
+    qr_s, bm, _ = prepare_round(t[0], t[1], sw.n_tiles, t[4], t[5], t[6],
+                                0.8, sw.tile, idx.dim, 8, sw.radixes,
+                                sw.span, sw.cell_width)
+    kw = dict(radius=0.8, K=K, TILE=sw.tile, dim=idx.dim, block=8)
+    for a, b in zip(sweep_search(qr_s, bm, t[2], t[3], **kw),
+                    sweep_search_plain(qr_s, bm, t[2], t[3], **kw)):
+        assert torch.equal(a, b)
+
+
+# --- B5 (sdtw) --------------------------------------------------------------
+
+def test_sdtw_kernel_matches_plain_on_gpu(cuda_device):
+    """B5 == sdtw_plain exactly, ragged and uniform, including a query long
+    enough to take several passes of the kernel."""
+    from sigmap_tpu_torch.ops.sdtw_kernel import sdtw, sdtw_plain
+
+    rng = np.random.default_rng(0)
+    cases = [ragged_pairs(), uniform_pairs()]
+    B, T, Q = 6, 700, 12000
+    tl = rng.integers(1, T + 1, B).astype(np.int32)
+    ql = rng.integers(1, Q + 1, B).astype(np.int32)
+    tl[0], ql[1] = 0, 0
+    cases.append((rng.normal(0, 1, (B, T)).astype(np.float32), tl,
+                   rng.normal(0, 1, (B, Q)).astype(np.float32), ql))
+    for case in cases:
+        args = [torch.from_numpy(a).to(cuda_device) for a in case]
+        before = LAUNCHES["sdtw"]
+        kb, ke = sdtw(*args)
+        torch.cuda.synchronize()
+        assert LAUNCHES["sdtw"] == before + 1
+        pb, pe = sdtw_plain(*args)
+        assert torch.equal(kb, pb) and torch.equal(ke, pe)
+
+
+# --- device paths against their CPU runs -------------------------------------
+
+def test_search_on_gpu_matches_cpu(search_setup, cuda_device):
+    from sigmap_tpu_torch.mapping import seeding as P
+
+    idx, q8 = search_setup
+    for kw in (SEARCH_KW, SEARCH_TIGHT):
+        out = []
+        for dev in ("cpu", cuda_device):
+            pd = P.DeviceIndex.from_host(idx, radius=SEARCH_RADIUS,
+                                         device=dev, **kw)
+            seeds, valid, n_tiles = P.pad_seeds(q8, pd.params)
+            out.append(P.flatten_matches(
+                P.search_flat(pd, seeds, valid, n_tiles), pd.params))
+        for a, b in zip(*out):
+            np.testing.assert_array_equal(a, b)
+
+
+def test_mapper_on_gpu_matches_cpu(driver_setup, cuda_device):
+    """The exact engine on the card against its CPU run: every record field
+    and tag exact (the feature sums are added in f64 on both devices,
+    signal/events.py:_row_sum)."""
+    from sigmap_tpu_torch.mapping import driver as port
+
+    idx, _, signals = driver_setup
+    for mode in ("streaming_map", "map_reads"):
+        before = LAUNCHES["peaks"]
+        got = getattr(port.Mapper(idx, DRIVER_CFG, device=cuda_device),
+                      mode)(signals)
+        assert LAUNCHES["peaks"] > before
+        want = getattr(port.Mapper(idx, DRIVER_CFG, device="cpu"),
+                       mode)(signals)
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            g, w = dataclasses.asdict(g), dataclasses.asdict(w)
+            g["tags"] = [t for t in g["tags"].split("\t") if t[:2] != "mt"]
+            w["tags"] = [t for t in w["tags"].split("\t") if t[:2] != "mt"]
+            assert g == w
+
+
+def test_align_modes_on_gpu_match_cpu(debug_work, cuda_device):
+    from sigmap_tpu_torch import debug_modes as tdm
+
+    ref, pore, sig, _ = debug_work
+    for mode in ("dtw_align", "cwt_align"):
+        before = LAUNCHES["sdtw"]
+        got = getattr(tdm, mode)(ref, pore, sig, out=io.StringIO(),
+                                 device=cuda_device)
+        torch.cuda.synchronize()
+        assert LAUNCHES["sdtw"] > before
+        assert got == getattr(tdm, mode)(ref, pore, sig, out=io.StringIO(),
+                                         device="cpu")

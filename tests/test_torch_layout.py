@@ -48,8 +48,14 @@ print("ok", len(sys.argv) - 1)
 """
 
 
+# tests/test_torch_gpu.py runs where the GPU is and JAX is not: it and its
+# fixture module import nothing of the JAX package either
+GPU_TESTS = ["test_torch_gpu", "_torch_gpu_util"]
+
+
 def _run(code, *args):
-    env = dict(os.environ, PYTHONPATH=ROOT)
+    env = dict(os.environ,
+               PYTHONPATH=os.pathsep.join([ROOT, os.path.join(ROOT, "tests")]))
     env.pop("JAX_PLATFORMS", None)
     return subprocess.run([sys.executable, "-c", code, *args], cwd=ROOT,
                           env=env, capture_output=True, text=True,
@@ -57,9 +63,9 @@ def _run(code, *args):
 
 
 def test_port_imports_without_jax():
-    r = _run(BLOCKER, *MODULES)
+    r = _run(BLOCKER, *MODULES, *GPU_TESTS)
     assert r.returncode == 0, r.stderr
-    assert r.stdout.strip() == f"ok {len(MODULES)}"
+    assert r.stdout.strip() == f"ok {len(MODULES) + len(GPU_TESTS)}"
 
 
 def test_modules_list_is_complete():
@@ -78,10 +84,9 @@ def test_modules_list_is_complete():
     assert found - subpkgs == set(MODULES)
 
 
-def test_chip_smoke_imports_nothing_of_the_jax_package():
-    """chip_smoke.py imports sigmap_tpu_torch, torch, numpy and the stdlib:
-    no import statement anywhere in it names sigmap_tpu or jax."""
-    with open(os.path.join(ROOT, "chip_smoke.py")) as f:
+def _import_roots(path):
+    """The top-level names of every import statement anywhere in `path`."""
+    with open(path) as f:
         tree = ast.parse(f.read())
     names = []
     for node in ast.walk(tree):
@@ -89,9 +94,42 @@ def test_chip_smoke_imports_nothing_of_the_jax_package():
             names += [a.name for a in node.names]
         elif isinstance(node, ast.ImportFrom):
             names.append(node.module or "")
-    roots = {n.split(".")[0] for n in names}
+    return {n.split(".")[0] for n in names}
+
+
+def test_chip_smoke_imports_nothing_of_the_jax_package():
+    """chip_smoke.py imports sigmap_tpu_torch, torch, numpy and the stdlib:
+    no import statement anywhere in it names sigmap_tpu or jax."""
+    roots = _import_roots(os.path.join(ROOT, "chip_smoke.py"))
     assert "sigmap_tpu_torch" in roots
     assert not roots & {"sigmap_tpu", "jax", "jaxlib", "h5py"}, roots
+
+
+@pytest.mark.parametrize("module", GPU_TESTS)
+def test_gpu_tests_import_nothing_of_the_jax_package(module):
+    """No import statement of tests/test_torch_gpu.py or its fixture module,
+    not even inside a function, names sigmap_tpu, jax, jaxlib or h5py."""
+    roots = _import_roots(os.path.join(ROOT, "tests", module + ".py"))
+    assert "sigmap_tpu_torch" in roots
+    assert not roots & {"sigmap_tpu", "jax", "jaxlib", "h5py"}, roots
+
+
+def test_no_other_torch_test_file_has_a_gpu_mark():
+    """Every test that needs the GPU lives in tests/test_torch_gpu.py, the
+    one file that runs on the card; the others import JAX."""
+    def marks_gpu(path):     # any `<x>.mark.gpu` in the code
+        with open(path) as f:
+            tree = ast.parse(f.read())
+        return any(isinstance(n, ast.Attribute) and n.attr == "gpu"
+                   and isinstance(n.value, ast.Attribute)
+                   and n.value.attr == "mark" for n in ast.walk(tree))
+
+    tests = os.path.join(ROOT, "tests")
+    files = [f for f in os.listdir(tests)
+             if f.startswith("test_torch_") and f.endswith(".py")]
+    assert marks_gpu(os.path.join(tests, "test_torch_gpu.py"))
+    assert [f for f in sorted(files) if f != "test_torch_gpu.py"
+            and marks_gpu(os.path.join(tests, f))] == []
 
 
 @pytest.mark.parametrize("flags", [

@@ -23,7 +23,6 @@ from sigmap_tpu.index.build import build_index
 from sigmap_tpu.io.fasta import ReferenceSequence
 from sigmap_tpu.mapping import seeding as J
 from sigmap_tpu_torch.mapping import seeding as P
-from _torch_util import cuda_device  # noqa: F401 - fixture
 
 RADIUS = 0.08
 BAND = 1e-6
@@ -131,18 +130,3 @@ def test_search_groups_of_tiles_do_not_change_results(setup, monkeypatch):
                               pd.params)
     for a, b in zip(whole, split):
         np.testing.assert_array_equal(a, b)
-
-
-@pytest.mark.gpu
-def test_search_on_gpu_matches_cpu(setup, cuda_device):
-    idx, q8 = setup
-    for kw in (KW, TIGHT):
-        out = []
-        for dev in ("cpu", cuda_device):
-            pd = P.DeviceIndex.from_host(idx, radius=RADIUS, device=dev,
-                                         **kw)
-            seeds, valid, n_tiles = P.pad_seeds(q8, pd.params)
-            out.append(P.flatten_matches(
-                P.search_flat(pd, seeds, valid, n_tiles), pd.params))
-        for a, b in zip(*out):
-            np.testing.assert_array_equal(a, b)

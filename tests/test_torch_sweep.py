@@ -38,7 +38,6 @@ from sigmap_tpu.synth import random_genome
 from sigmap_tpu_torch.mapping.sweep_search import (longest_first,
                                                    prepare_round, sweep_round)
 from sigmap_tpu_torch.ops.sweep_kernel import sweep_search_plain
-from _torch_util import cuda_device  # noqa: F401 - fixture
 from test_sweep import EPS, _raw_windows_by_meta
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -155,27 +154,6 @@ def test_port_sweep_block_size_invariant(small_index):
     b = _run_both(small_index, "closest_k", block=32)[5]
     for x, y in zip(a, b):
         np.testing.assert_array_equal(x, y)
-
-
-@pytest.mark.gpu
-def test_sweep_kernel_matches_plain_on_gpu(small_index, cuda_device):
-    from sigmap_tpu_torch.mapping.sweep_search import prepare_round
-    from sigmap_tpu_torch.ops.sweep_kernel import (
-        sweep_search, sweep_search_plain,
-    )
-
-    cfg, idx = small_index
-    sw = SweepIndex.build(idx, 0.8, tile=256)
-    qs, K = _queries(idx, sw, "closest_k")
-    t = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda_device) for a in
-         (qs, sw.cum, sw.tiles, sw.meta, sw.rot, sw.mu, sw.origin)]
-    qr_s, bm, _ = prepare_round(t[0], t[1], sw.n_tiles, t[4], t[5], t[6],
-                                0.8, sw.tile, idx.dim, 8, sw.radixes,
-                                sw.span, sw.cell_width)
-    kw = dict(radius=0.8, K=K, TILE=sw.tile, dim=idx.dim, block=8)
-    for a, b in zip(sweep_search(qr_s, bm, t[2], t[3], **kw),
-                    sweep_search_plain(qr_s, bm, t[2], t[3], **kw)):
-        assert torch.equal(a, b)
 
 
 INF32 = np.float32(1.0e30)
