@@ -31,10 +31,14 @@
    intervals) and idle share, and the gaps between device intervals (the
    ten longest, the stretches before the first and after the last interval
    among them) with the host ops that ran in each;
-6. the debug modes and B5: B5 == plain at bench.py's DTW shape and on the
-   debug path's own full-width inputs (a 48,502-base reference, 64 reads of
-   3000 bases), then ``--debug-mode dtw-align`` and ``cwt-align`` through
-   the CLI (one line per pair, B5 launched), then the ``events-to-text``
+6. the debug modes and B5: B5 == plain at bench.py's DTW shape, on
+   ``sdtw_adversarial`` (band and pass edges, ragged, empty and tied pairs)
+   and on the debug path's own full-width inputs (a 48,502-base reference,
+   64 reads of 3000 bases), with B5's plan at each of the three shapes, its
+   time under plan's other choices, and its ptxas registers, stack and
+   spills; then ``--debug-mode dtw-align`` and ``cwt-align`` through
+   the CLI, three runs each (one line per pair, B5 launched; the host's
+   pair preparation timed apart), then the ``events-to-text``
    and ``fast5-to-text`` dumps of the same reads;
 7. the exact engine through the CLI on phase 4's index: ``--engine exact``
    on the first EXACT_READS reads and ``--batch-mode`` on the first
@@ -124,6 +128,9 @@ KEEP_OPS_PER_EVENT = 4       # B2: sub, abs, compare, select per event
 CHAIN_OPS_PER_REFUSAL = 3
 CHAIN_OPS_PER_SLOT = 25
 SDTW_OPS_PER_CELL = 5        # B5: sub, abs, two mins, add per cell
+# B5 as this card issues it: FADD, two FMNMX and an FADD that takes the
+# abs as an |operand| modifier; its bound is reported beside the 5-op one
+SDTW_INSTR_PER_CELL = 4
 SEED_PAD = 2.0e9             # mapping/sweep_search.py:SEED_PAD
 
 
@@ -440,6 +447,73 @@ def sdtw_work(t_len, q_len, T, Q):
     B = t_len.shape[0]
     cells = int((t_len.long() * q_len.long()).sum())
     return cells * SDTW_OPS_PER_CELL, (B * (T + Q)) * 4 + B * 16
+
+
+def sdtw_adversarial(seed=0):
+    """B5 inputs: {name: (launch (a make_plan) or None for plan's own, (targets [B, T], t_len [B], queries [B, Q], q_len [B])
+    numpy)}:
+    edges_<R>_<warps>_<cluster>: q_len 1 and each band and pass edge -1, 0,
+      +1 under that launch (every band's first and last row holds q_len-1;
+      passes through the scratch row);
+    ragged: plan's launch, pairs needing 1 to all of its bands, random
+      t_len;
+    long_query: queries longer than their targets (t_len 1-40);
+    empty: t_len 0 and q_len 0 beside ordinary pairs;
+    regimes: one launch, pairs of one band, of several bands in one CTA, of
+      both CTAs, and of three passes;
+    ties: constant and periodic signals whose last row ties on many target
+      positions (the end must be the first)."""
+    import numpy as np
+
+    from sigmap_tpu_torch.ops.sdtw_kernel import make_plan
+
+    rng = np.random.default_rng(seed)
+
+    def pairs(tl, ql, T=None, Q=None):
+        tl, ql = np.asarray(tl, np.int32), np.asarray(ql, np.int32)
+        T = T or max(1, int(tl.max()))
+        Q = Q or max(1, int(ql.max()))
+        ts = rng.normal(0, 1, (len(tl), T)).astype(np.float32)
+        qs = rng.normal(0, 1, (len(ql), Q)).astype(np.float32)
+        return ts, tl, qs, ql
+
+    out = {}
+    for R, nw, C in ((4, 2, 2), (8, 3, 1), (2, 2, 4), (8, 1, 8)):
+        band = 32 * R
+        prow = C * nw * band
+        edges = sorted({e for k in range(1, 2 * C * nw + 1)
+                        for e in (k * band - 1, k * band, k * band + 1)})
+        ql = [1] + edges
+        tl = rng.integers(60, 160, len(ql))
+        Q = 2 * prow + 1
+        out[f"edges_{R}_{nw}_{C}"] = (
+            make_plan(len(ql), 160, Q, R, C, nw),
+            pairs(tl, ql, 160, Q))
+    ql = rng.integers(1, 3000, 12)
+    out["ragged"] = (None, pairs(rng.integers(1, 400, 12), ql))
+    out["long_query"] = (make_plan(6, 40, 700, 4, 2, 2),
+                         pairs(rng.integers(1, 41, 6),
+                               rng.integers(300, 701, 6), 40, 700))
+    out["empty"] = (None, pairs([0, 50, 0, 80, 30], [20, 0, 0, 64, 1],
+                                80, 64))
+    out["regimes"] = (make_plan(4, 300, 1100, 4, 2, 2),
+                      pairs([300, 250, 300, 280], [50, 200, 400, 1100],
+                            300, 1100))
+    T, Q = 240, 96
+    ts = np.zeros((4, T), np.float32)
+    qs = np.zeros((4, Q), np.float32)
+    ts[0], qs[0] = 1.0, 1.0                       # every cell costs 0
+    pat = np.array([0.0, 1.0, 2.0], np.float32)
+    ts[1] = np.tile(pat, T // 3)                  # the query fits every period
+    qs[1] = np.tile(pat, Q // 3)
+    ts[2] = np.repeat(np.array([0.5, 2.0], np.float32), T // 2)
+    qs[2] = 0.5                                    # ties over half the target
+    ts[3] = np.tile(np.float32(0.25) * np.arange(8, dtype=np.float32), 30)
+    qs[3, :40] = np.float32(0.25) * np.arange(8, dtype=np.float32).repeat(5)
+    tl = np.array([T, T, T, T], np.int32)
+    ql = np.array([Q, Q, 60, 40], np.int32)
+    out["ties"] = (None, (ts, tl, qs, ql))
+    return out
 
 
 def sweep_work(bm, TILE, block, dim, K):
@@ -1137,6 +1211,61 @@ ALIGN_LINE = re.compile(
     r"rough mapping end postion: (-?\d+)\.)")
 
 
+def sdtw_shape(records, sub, args, plain_reps=0, label=""):
+    """B5 == plain on `args`, timed, with its bound (and the bound at the
+    instructions this card issues, `bound_ms_4op`), cell updates/s and
+    plan; the same inputs == and timed under plan's other choices of rows a
+    lane and CTAs a pair (`alternatives`).  Returns the kernel's
+    outputs."""
+    import torch
+
+    from sigmap_tpu_torch.ops.sdtw_kernel import (CLUSTERS, ROWS, make_plan,
+                                                  plan, sdtw, sdtw_plain,
+                                                  sm_count)
+
+    B, T = args[0].shape
+    Q = args[2].shape[1]
+    got = sdtw(*args)
+    ops, nbytes = sdtw_work(args[1], args[3], T, Q)
+    rec = check(records, "sdtw", f"{label}B={B} T={T} Q={Q}", got,
+                lambda: sdtw(*args), lambda: sdtw_plain(*args),
+                plain_reps=plain_reps, sub=sub, work=(ops, nbytes))
+    cells = int((args[1].long() * args[3].long()).sum())
+    sms = sm_count(args[0].device)
+    pl = plan(B, T, Q, sms)
+    rec.update(cell_updates_per_s=cells / (rec["ms"] / 1e3),
+               bound_ms_4op=bound(cells * SDTW_INSTR_PER_CELL,
+                                  nbytes)["bound_ms"],
+               plan=pl._asdict())
+    log(f"sdtw {label}B={B} T={T} Q={Q}: {cells} cells, "
+        f"{rec['cell_updates_per_s']:.6e} cell updates/s; "
+        f"{100 * rec['bound_ms'] / rec['ms']:.1f}% of the 5-op bound, "
+        f"{100 * rec['bound_ms_4op'] / rec['ms']:.1f}% of the "
+        f"{rec['bound_ms_4op']:.4f} ms 4-instruction bound; plan: "
+        f"{pl.rows} rows a lane, {pl.warps} warps a CTA, {pl.cluster} CTAs "
+        f"a cluster, {pl.ctas} CTAs, {pl.passes} passes, "
+        f"{pl.scratch_bytes} B scratch, {pl.smem_bytes} B shared a CTA")
+    alt = {}
+    for R, C in sorted({(R, pl.cluster) for R in ROWS} |
+                       {(pl.rows, C) for C in CLUSTERS}):
+        if (R, C) == (pl.rows, pl.cluster) or (C > 1 and B * C > 2 * sms):
+            continue
+        try:
+            other = make_plan(B, T, Q, R, C)
+        except ValueError:
+            continue
+        alt_got = sdtw(*args, launch=other)
+        assert all(torch.equal(a, b) for a, b in zip(alt_got, got)), \
+            f"sdtw under {other} differs"
+        alt[f"R{R}_C{C}"] = dict(warps=other.warps, passes=other.passes,
+                                 ms=cuda_ms(lambda: sdtw(*args, launch=other),
+                                            3))
+    rec["alternatives"] = alt
+    log(f"sdtw {label}alternatives (rows R, cluster C: ms): " + ", ".join(
+        f"{k} {v['ms']:.3f}" for k, v in alt.items()))
+    return got
+
+
 def debug_phase(records, by_path, dev, work):
     """Phase 6: B5 == plain at bench.py's DTW shape and on the inputs of
     debug_modes' own pair preparation, the two align modes and the two
@@ -1158,12 +1287,16 @@ def debug_phase(records, by_path, dev, work):
             torch.full((B,), T, dtype=torch.int32),
             torch.from_numpy(rng.normal(0, 1, (B, Q)).astype(np.float32)),
             torch.full((B,), Q, dtype=torch.int32))
-    args = tuple(a.to(dev) for a in args)
-    rec = check(records, "sdtw", f"B={B} T={T} Q={Q}", sdtw(*args),
-                lambda: sdtw(*args), lambda: sdtw_plain(*args),
-                sub="bench_dtw", work=sdtw_work(args[1], args[3], T, Q))
-    rec["cell_updates_per_s"] = B * T * Q / (rec["ms"] / 1e3)
-    log(f"sdtw bench shape: {rec['cell_updates_per_s']:.6e} cell updates/s")
+    sdtw_shape(records, "bench_dtw", tuple(a.to(dev) for a in args),
+               plain_reps=2)
+    records["sdtw"]["ptxas"] = ptxas_summary("sdtw")
+    log(f"sdtw ptxas: {records['sdtw']['ptxas']}")
+    for name, (launch, arrays) in sdtw_adversarial().items():
+        args = tuple(torch.from_numpy(a).to(dev) for a in arrays)
+        check(records, "sdtw", f"adversarial {name}",
+              sdtw(*args, launch=launch), lambda: sdtw(*args, launch=launch),
+              lambda: sdtw_plain(*args), plain_reps=0,
+              sub=f"adversarial_{name}")
 
     # --- the debug path's own inputs, all pairs, full width -----------------
     t0 = time.perf_counter()
@@ -1175,33 +1308,31 @@ def debug_phase(records, by_path, dev, work):
     truth = {r.read_id: r for r in reads}
     for mode, prep in (("dtw-align", debug_modes.dtw_pairs),
                        ("cwt-align", debug_modes.cwt_pairs)):
-        labels, targets, queries = prep(ref, pore, sig)[:3]
-        assert debug_modes.batch_bounds(targets, queries) == [
-            (0, len(targets))], "the pairs should fit one batch"
-        args = debug_modes.pack_pairs(targets, queries, dev)
-        got = sdtw(*args)
-        rec = check(records, "sdtw",
-                    f"{mode} pairs={len(targets)} T={args[0].shape[1]} "
-                    f"Q={args[2].shape[1]}", got, lambda: sdtw(*args),
-                    lambda: sdtw_plain(*args), plain_reps=0,
-                    sub=None if mode == "dtw-align" else "cwt_align",
-                    work=sdtw_work(args[1], args[3], args[0].shape[1],
-                                   args[2].shape[1]))
-        cells = sum(len(t) * len(q) for t, q in zip(targets, queries))
-        rec["cell_updates_per_s"] = cells / (rec["ms"] / 1e3)
-        log(f"sdtw {mode}: {cells} cells, "
-            f"{rec['cell_updates_per_s']:.6e} cell updates/s")
-
-        reset_launches()
-        buf = io.StringIO()
         t0 = time.perf_counter()
-        with contextlib.redirect_stderr(buf):
-            rc = cli.main(["--debug-mode", mode, "-r", ref, "-p", pore,
-                           "-s", sig])
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        by_path[mode] = dict(LAUNCHES)
-        assert rc == 0, f"{mode} failed ({rc})"
+        labels, targets, queries = prep(ref, pore, sig)[:3]
+        log(f"{mode} pairs: {time.perf_counter() - t0:.3f} s on the host "
+            f"(signals, reference, features)")
+        assert debug_modes.batch_bounds(
+            targets, queries, torch.cuda.get_device_properties(
+                dev).multi_processor_count) == [(0, len(targets))], \
+            "the pairs should fit one batch"
+        args = debug_modes.pack_pairs(targets, queries, dev)
+        got = sdtw_shape(records, None if mode == "dtw-align" else "cwt_align",
+                         args, label=f"{mode} pairs={len(targets)} ")
+        walls = []      # three runs: one wall on a shared host is noisy
+        for rep in range(3):
+            reset_launches()
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stderr(buf):
+                rc = cli.main(["--debug-mode", mode, "-r", ref, "-p", pore,
+                               "-s", sig])
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            assert rc == 0, f"{mode} failed ({rc})"
+            if rep == 0:
+                by_path[mode] = dict(LAUNCHES)
+        wall = statistics.median(walls)
         lines = ALIGN_LINE.findall(buf.getvalue())
         assert [(m[0], m[1]) for m in lines] == labels, \
             f"{mode}: {len(lines)} lines for {len(labels)} pairs"
@@ -1214,7 +1345,8 @@ def debug_phase(records, by_path, dev, work):
         fwd = [(truth[m[0]], p) for m, p in zip(lines, pos)
                if truth[m[0]].strand == 1]
         inside = sum(r.ref_start - 10 <= p <= r.ref_end + 10 for r, p in fwd)
-        log(f"{mode} via CLI: {len(lines)} lines in {wall:.3f} s; sdtw "
+        log(f"{mode} via CLI: {len(lines)} lines in {wall:.3f} s (median; "
+            f"runs {', '.join(f'{w:.3f}' for w in walls)}); sdtw "
             f"launches {by_path[mode]['sdtw']}; forward-strand reads ending "
             f"inside their locus +-10: {inside}/{len(fwd)}")
         assert by_path[mode]["sdtw"] > 0, f"{mode} did not launch B5"

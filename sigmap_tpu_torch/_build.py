@@ -149,7 +149,7 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.sig_chain_fused_smem.restype = ctypes.c_longlong
     lib.sig_chain_fused_smem.argtypes = [I, I, I, I, I]
     lib.sig_sdtw_launch.restype = I
-    lib.sig_sdtw_launch.argtypes = [P, P, P, P, I, I, I, I, P, P, P, P]
+    lib.sig_sdtw_launch.argtypes = [P, P, P, P] + [I] * 6 + [P, P, P, P]
 
 
 def check(err: int, name: str) -> None:

@@ -25,12 +25,12 @@ from .io.fasta import read_fasta
 from .io.pore_model import PoreModel
 from .io.signals import load_all_read_signals
 from .ops.cwt import cwt_feature_signal
-from .ops.sdtw_kernel import sdtw
+from .ops.sdtw_kernel import plan, sdtw, sm_count
 from .signal import events_ref
 
 # device memory one batch of sDTW pairs may take: targets, queries and the
-# kernel's [2, T] boundary-column scratch, 4 bytes each (64 reads of 3000
-# bases against a 48.5 kb reference take ~44 MB)
+# scratch of the kernel's launch plan, 4 bytes each (64 reads of 3000 bases
+# against a 48.5 kb reference take ~32 MB)
 SDTW_BATCH_BYTES = 1 << 30
 
 # sdtw_np's answers where B5 has no valid last-column cell: an empty query
@@ -77,13 +77,21 @@ def cwt_pairs(ref_path: str, pore_path: str, sig_dir: str,
     return labels, targets, queries, rpos
 
 
-def batch_bounds(targets, queries, budget: int = SDTW_BATCH_BYTES):
+def batch_bytes(n: int, T: int, Q: int, sms: int) -> int:
+    """Device bytes of one B5 call on n pairs padded to T and Q on a card of
+    `sms` SMs: targets and queries, and the scratch that ``plan`` allocates
+    for them."""
+    return 4 * (T + Q) * n + plan(n, T, Q, sms).scratch_bytes
+
+
+def batch_bounds(targets, queries, sms: int,
+                 budget: int = SDTW_BATCH_BYTES):
     """Split pairs into consecutive [lo, hi) batches whose padded inputs and
-    scratch, 4 * (3 T_max + Q_max) bytes a pair, stay within ``budget``."""
+    scratch (``batch_bytes``) stay within ``budget``."""
     out, lo, tmax, qmax = [], 0, 0, 0
     for k, (t, q) in enumerate(zip(targets, queries)):
         t2, q2 = max(tmax, len(t)), max(qmax, len(q))
-        if k > lo and 4 * (3 * t2 + q2) * (k + 1 - lo) > budget:
+        if k > lo and batch_bytes(k + 1 - lo, t2, q2, sms) > budget:
             out.append((lo, k))
             lo, t2, q2 = k, len(t), len(q)
         tmax, qmax = t2, q2
@@ -112,7 +120,10 @@ def sdtw_pairs(targets, queries, device):
     -> (best [P] f32, end [P] i32) as numpy, equal to ``sdtw_np``."""
     best = np.zeros(len(targets), np.float32)
     end = np.zeros(len(targets), np.int32)
-    for lo, hi in batch_bounds(targets, queries):
+    dev = torch.device(device)
+    # the plain version on the CPU has no launch: count a one-SM card's plan
+    sms = sm_count(dev) if dev.type == "cuda" else 1
+    for lo, hi in batch_bounds(targets, queries, sms):
         b, e = sdtw(*pack_pairs(targets[lo:hi], queries[lo:hi], device))
         best[lo:hi] = b.cpu().numpy()
         end[lo:hi] = e.cpu().numpy()

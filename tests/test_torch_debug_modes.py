@@ -23,6 +23,8 @@ from sigmap_tpu.synth import genome_to_fasta_str, random_genome, simulate_reads
 from sigmap_tpu_torch import debug_modes as tdm
 from sigmap_tpu_torch.signal import events_ref as tref
 
+SMS = 132                  # an H100 SXM's SMs (the plan's `sms`)
+
 
 @pytest.fixture(scope="module")
 def work(tmp_path_factory):
@@ -66,12 +68,36 @@ def test_pairs_are_ragged(work):
 def test_batch_bounds_split_at_the_budget():
     targets = [np.zeros(n, np.float32) for n in (10, 30, 20, 5)]
     queries = [np.zeros(4, np.float32)] * 4
-    assert tdm.batch_bounds(targets, queries) == [(0, 4)]
-    # 4 * (3 * 30 + 4) bytes a pair once the 30-sample target is in
-    assert tdm.batch_bounds(targets, queries, budget=4 * 94 * 2) == [
+    assert tdm.batch_bounds(targets, queries, SMS) == [(0, 4)]
+    # 4 * (30 + 4) bytes a pair once the 30-sample target is in; one pass,
+    # so no scratch
+    assert tdm.batch_bytes(2, 30, 4, SMS) == 4 * 34 * 2
+    assert tdm.batch_bounds(targets, queries, SMS, budget=4 * 34 * 2) == [
         (0, 2), (2, 4)]
-    assert tdm.batch_bounds(targets, queries, budget=1) == [
+    assert tdm.batch_bounds(targets, queries, SMS, budget=1) == [
         (0, 1), (1, 2), (2, 3), (3, 4)]
+
+
+def test_batch_bounds_count_the_plan_scratch():
+    """A query longer than a cluster's rows runs in passes; the [n, T]
+    scratch row that plan allocates then counts against the budget."""
+    from sigmap_tpu_torch.ops.sdtw_kernel import plan
+
+    T, Q = 1000, 200_000
+    pl = plan(2, T, Q, SMS)
+    assert pl.passes > 1 and pl.scratch_bytes == 4 * 2 * T
+    assert tdm.batch_bytes(2, T, Q, SMS) == 4 * (T + Q) * 2 + 4 * 2 * T
+    targets = [np.empty(T, np.float32)] * 3
+    queries = [np.empty(Q, np.float32)] * 3
+    budget = tdm.batch_bytes(2, T, Q, SMS)
+    assert budget < tdm.batch_bytes(3, T, Q, SMS)
+    assert tdm.batch_bounds(targets, queries, SMS, budget=budget) == [
+        (0, 2), (2, 3)]
+    # the inputs of two pairs alone fit this budget; with the scratch they
+    # do not
+    assert tdm.batch_bounds(targets, queries, SMS,
+                            budget=4 * (T + Q) * 2) == [(0, 1), (1, 2),
+                                                        (2, 3)]
 
 
 @pytest.mark.parametrize("mode", ["fast5_to_text", "events_to_text"])

@@ -33,7 +33,7 @@ from sigmap_tpu_torch.config import ChainingConfig, EventDetectorConfig
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from chip_smoke import (  # noqa: E402
     ADV_WINDOW_ROWS, chain_adversarial, compress_adversarial,
-    peaks_adversarial,
+    peaks_adversarial, sdtw_adversarial,
 )
 
 pytestmark = pytest.mark.gpu
@@ -171,27 +171,57 @@ def test_sweep_kernel_matches_plain_on_gpu(sweep_index, cuda_device):
 
 # --- B5 (sdtw) --------------------------------------------------------------
 
-def test_sdtw_kernel_matches_plain_on_gpu(cuda_device):
-    """B5 == sdtw_plain exactly, ragged and uniform, including a query long
-    enough to take several passes of the kernel."""
+# chip_smoke.sdtw_adversarial's cases (tests/test_torch_sdtw.py holds the
+# list to it), and the ragged, uniform and long pairs ("pairs")
+SDTW_CASES = ("pairs", "edges_4_2_2", "edges_8_3_1", "edges_2_2_4",
+              "edges_8_1_8", "ragged", "long_query", "empty", "regimes",
+              "ties")
+
+
+@pytest.mark.parametrize("case", SDTW_CASES)
+def test_sdtw_kernel_matches_plain_on_gpu(cuda_device, case):
+    """B5 == sdtw_plain exactly (best and end): ragged and uniform pairs,
+    and queries up to 12,000 samples (plan splits them over 8 CTAs); q_len
+    at every band and pass edge +-1 of four launches; a ragged batch;
+    queries longer than their targets; t_len 0 and q_len 0; pairs of one
+    band, several bands, both CTAs of a cluster and three passes in one
+    call; ties on many target positions (the first wins)."""
     from sigmap_tpu_torch.ops.sdtw_kernel import sdtw, sdtw_plain
 
-    rng = np.random.default_rng(0)
-    cases = [ragged_pairs(), uniform_pairs()]
-    B, T, Q = 6, 700, 12000
-    tl = rng.integers(1, T + 1, B).astype(np.int32)
-    ql = rng.integers(1, Q + 1, B).astype(np.int32)
-    tl[0], ql[1] = 0, 0
-    cases.append((rng.normal(0, 1, (B, T)).astype(np.float32), tl,
-                   rng.normal(0, 1, (B, Q)).astype(np.float32), ql))
-    for case in cases:
-        args = [torch.from_numpy(a).to(cuda_device) for a in case]
+    if case == "pairs":
+        rng = np.random.default_rng(0)
+        B, T, Q = 6, 700, 12000
+        tl = rng.integers(1, T + 1, B).astype(np.int32)
+        ql = rng.integers(1, Q + 1, B).astype(np.int32)
+        tl[0], ql[1] = 0, 0
+        runs = [(None, c) for c in (ragged_pairs(), uniform_pairs())] + [
+            (None, (rng.normal(0, 1, (B, T)).astype(np.float32), tl,
+                    rng.normal(0, 1, (B, Q)).astype(np.float32), ql))]
+    else:
+        runs = [sdtw_adversarial()[case]]
+    for launch, arrays in runs:
+        args = [torch.from_numpy(a).to(cuda_device) for a in arrays]
         before = LAUNCHES["sdtw"]
-        kb, ke = sdtw(*args)
+        kb, ke = sdtw(*args, launch=launch)
         torch.cuda.synchronize()
         assert LAUNCHES["sdtw"] == before + 1
         pb, pe = sdtw_plain(*args)
         assert torch.equal(kb, pb) and torch.equal(ke, pe)
+
+
+def test_sdtw_refused_launch_raises(cuda_device):
+    """A launch outside the kernel's shapes raises; nothing falls back to
+    sdtw_plain."""
+    from sigmap_tpu_torch.ops.sdtw_kernel import make_plan, sdtw
+
+    args = [torch.from_numpy(a).to(cuda_device) for a in uniform_pairs()]
+    B, T, Q = args[0].shape[0], args[0].shape[1], args[2].shape[1]
+    before = LAUNCHES["sdtw"]
+    # no instantiation of 16 rows a lane; a cluster over 8 CTAs
+    for kw in (dict(rows=16), dict(cluster=16)):
+        with pytest.raises(RuntimeError, match="sdtw"):
+            sdtw(*args, launch=make_plan(B, T, Q, 2, 1)._replace(**kw))
+    assert LAUNCHES["sdtw"] == before
 
 
 # --- device paths against their CPU runs -------------------------------------

@@ -105,6 +105,14 @@ def test_chip_smoke_imports_nothing_of_the_jax_package():
     assert not roots & {"sigmap_tpu", "jax", "jaxlib", "h5py"}, roots
 
 
+def test_align_walls_tool_imports_nothing_of_the_jax_package():
+    """tools_torch_align_walls.py runs on the card's machine (no JAX): it
+    imports the port, chip_smoke, torch and the stdlib only."""
+    roots = _import_roots(os.path.join(ROOT, "tools_torch_align_walls.py"))
+    assert {"sigmap_tpu_torch", "chip_smoke"} <= roots
+    assert not roots & {"sigmap_tpu", "jax", "jaxlib", "h5py"}, roots
+
+
 @pytest.mark.parametrize("module", GPU_TESTS)
 def test_gpu_tests_import_nothing_of_the_jax_package(module):
     """No import statement of tests/test_torch_gpu.py or its fixture module,
