@@ -53,7 +53,27 @@
    of the first WIDE_READS reads, scored like phase 4, every turbo kernel
    launched;
 9. tests/test_torch_gpu.py under pytest (``-m gpu --noconftest``): every
-   case must pass, none skip; its summary line is printed.
+   case must pass, none skip; its summary line is printed;
+10. the round-5 workload (BENCH_r05.json): THREE_BATCH_READS reads of phase
+    4's genome at read batch THREE_BATCH_B, three batches, HOST_THREADS host
+    threads (bench.py:240-241), on phase 4's index: ``-m`` through the CLI,
+    scored like phase 4, B1-B4 launched; then on one mapper with phase 5's
+    rescue oracle, OVERLAP_PASSES warm passes with the cross-batch overlap
+    on and as many with it off, alternated after an untimed pass, their
+    records equal apart from mt:, with each pass's head (batch 0's
+    preparation), its waits between batches, its rounds and its rescue
+    tail (``TurboMapper.last_pass``); the same at -t 1 on the first
+    SWEEP_READS reads at each of SWEEP_BATCHES read batches; on the
+    round-5 workload and at the CLI's default read batch, the mapper's
+    default way must not be slower in every pass than the other way in
+    every pass; batch 0's head alone (host staging, all of
+    prepare_batch); one overlapped pass under torch.profiler: device
+    busy and idle share, the longest device gaps, and per batch the time
+    the side stream's work (upload, quantization, batch_features: B1, B2
+    and their glue) and the main stream's (the rounds: B3, B4 and theirs)
+    ran at once, which must be above zero for batches 1 and 2 (the
+    streams do not serialise); B1/B2 against B3/B4 alone is printed
+    beside it.
 
 A line before the last is the per-kernel JSON record (each kernel's
 launches, max_abs_err, ms, plain_ms, its bound from the operations and bytes
@@ -65,6 +85,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import io
 import json
 import os
@@ -92,6 +113,16 @@ EXACT_READ_BATCH = 512   # --read-batch of phase 7: one wavefront of reads
 # JAX package's K=16 operating point at S=1024), on a prefix of the reads
 WIDE = dict(S=1024, K=16)
 WIDE_READS = 512
+# phase 10: the round-5 workload (BENCH_r05.json): 6144 reads, three
+# batches of 2048, 4 host threads as bench.py:240-241 runs it
+THREE_BATCH_READS = 6144
+THREE_BATCH_B = 2048
+HOST_THREADS = 4
+OVERLAP_PASSES = 3     # warm passes with the overlap on, and as many off
+# and at -t 1 (the CLI's default) on the first SWEEP_READS reads at each
+# of SWEEP_BATCHES read batches, the first the CLI's default
+SWEEP_BATCHES = (128, 512, 1024)
+SWEEP_READS = 2048
 
 KERNELS = {
     "peaks": ("sigmap_tpu_torch/csrc/events.cu",
@@ -990,17 +1021,25 @@ def ptxas_summary(stem):
     return out
 
 
+def _union(spans):
+    """Sorted disjoint intervals covering the (start, end) pairs."""
+    out = []
+    for a, b in sorted(spans):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
 def device_busy(trace_path):
     """(busy ms, {name: (ms, count)}) of the device work in a chrome trace;
     busy time is the union of the intervals, so overlap counts once."""
     with open(trace_path) as f:
         ev = [e for e in json.load(f)["traceEvents"]
               if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS]
-    busy, end = 0.0, float("-inf")
-    for a, b in sorted((e["ts"], e["ts"] + e["dur"]) for e in ev):
-        if b > end:
-            busy += b - max(a, end)
-            end = b
+    busy = sum(b - a for a, b in _union((e["ts"], e["ts"] + e["dur"])
+                                        for e in ev))
     by_name: dict = {}
     for e in ev:
         ms, n = by_name.get(e["name"], (0.0, 0))
@@ -1070,6 +1109,74 @@ def host_gaps(trace_path, top=10):
         host_ops=[(n[:60], t / 1000) for n, t in
                   sorted(all_ops.items(), key=lambda kv: -kv[1])[:top]],
         longest=out)
+
+
+
+def _overlap(u, v):
+    """Length of the intersection of two sorted disjoint interval lists."""
+    i = j = 0
+    total = 0.0
+    while i < len(u) and j < len(v):
+        lo, hi = max(u[i][0], v[j][0]), min(u[i][1], v[j][1])
+        total += max(0.0, hi - lo)
+        if u[i][1] < v[j][1]:
+            i += 1
+        else:
+            j += 1
+    return total
+
+
+def stream_overlap(trace_path, side_names, main_names, n_batches):
+    """How long two CUDA streams' device work ran at once, batch by batch,
+    in a chrome trace.  The side stream is the one that ran a kernel whose
+    name holds side_names[0] (B1), the main stream the one that ran one
+    holding main_names[0] (B3).  The side stream's intervals (kernels,
+    copies, memsets) split into n_batches bursts at their n_batches - 1
+    longest gaps (between two batches' heads the host quantizes the next
+    batch).  For each burst: its device time, the time it ran together with
+    any main-stream work, and the time its kernels named in side_names ran
+    together with main-stream kernels named in main_names, in ms, and its
+    number of side_names[0] kernels (one a batch)."""
+    with open(trace_path) as f:
+        ev = [e for e in json.load(f)["traceEvents"]
+              if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS]
+
+    def stream_of(names):
+        found = {e["args"]["stream"] for e in ev if e.get("cat") == "kernel"
+                 and names[0] in e["name"]}
+        if len(found) != 1:
+            raise AssertionError(f"{names[0]} ran on streams {found}")
+        return found.pop()
+
+    side_id, main_id = stream_of(side_names), stream_of(main_names)
+    if side_id == main_id:
+        raise AssertionError(f"the overlap is not there: {side_names[0]} and "
+                             f"{main_names[0]} ran on one stream {side_id}")
+
+    def spans(stream, names=None):
+        return [(e["ts"], e["ts"] + e["dur"], e["name"]) for e in ev
+                if e.get("args", {}).get("stream") == stream and (
+                    names is None or (e.get("cat") == "kernel" and any(
+                        n in e["name"] for n in names)))]
+
+    side = sorted(spans(side_id))
+    main_all = _union((a, b) for a, b, _ in spans(main_id))
+    main_named = _union((a, b) for a, b, _ in spans(main_id, main_names))
+    gaps = sorted(range(1, len(side)), key=lambda i: side[i - 1][1]
+                  - side[i][0])[:n_batches - 1]
+    cuts = [0, *sorted(gaps), len(side)]
+    out = []
+    for lo, hi in zip(cuts, cuts[1:]):
+        burst = side[lo:hi]
+        u = _union((a, b) for a, b, _ in burst)
+        named = _union((a, b) for a, b, n in burst
+                       if any(m in n for m in side_names))
+        out.append(dict(
+            side_ms=sum(b - a for a, b in u) / 1000,
+            overlap_ms=_overlap(u, main_all) / 1000,
+            named_overlap_ms=_overlap(named, main_named) / 1000,
+            first_kernels=sum(side_names[0] in n for _, _, n in burst)))
+    return dict(side_stream=side_id, main_stream=main_id, per_batch=out)
 
 
 @contextlib.contextmanager
@@ -1160,24 +1267,15 @@ def profile_warm(mapper, signals, work):
         warm.append(time.perf_counter() - t0)
     warm_s = statistics.median(warm)
     # the pass ends by waiting for the reads that the host's exact engine
-    # re-maps (no torch op runs meanwhile): time that wait in the profiled
-    # pass, so that the stretch after the last device interval has a name
-    drain, drain_s = mapper._drain_rescues, []
-
-    def timed_drain(records, n):
-        t0 = time.perf_counter()
-        out = drain(records, n)
-        drain_s.append(time.perf_counter() - t0)
-        return out
-
-    mapper._drain_rescues = timed_drain
+    # re-maps (no torch op runs meanwhile): the mapper times that wait, so
+    # that the stretch after the last device interval has a name
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         mapper.streaming_map(signals)
         torch.cuda.synchronize()
         prof_s = time.perf_counter() - t0
-    mapper._drain_rescues = drain
+    drain_ms = pass_waits(mapper.last_pass)["rescue_tail_ms"]
     trace = os.path.join(work, "warm_trace.json")
     prof.export_chrome_trace(trace)
     busy_ms, by_name = device_busy(trace)
@@ -1188,12 +1286,17 @@ def profile_warm(mapper, signals, work):
     log(f"warm profile: wall {prof_s * 1000:.3f} ms, device busy "
         f"{busy_ms:.3f} ms, idle share {1 - busy_ms / (prof_s * 1000):.4f}")
     log(f"warm profile: waiting for the rescued reads at the end of the "
-        f"pass {sum(drain_s) * 1000:.3f} ms")
+        f"pass {drain_ms:.3f} ms")
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
     for name, (ms, cnt) in top:
         log(f"  device {ms:10.3f} ms {cnt:6d}x  {name[:70]}")
+    log_gaps("warm profile", trace)
+
+
+def log_gaps(label, trace):
+    """Print host_gaps of a trace: all of it as JSON, then the gaps."""
     gaps = host_gaps(trace)
-    log("warm profile, device gaps: " + json.dumps(gaps))
+    log(f"{label}, device gaps: " + json.dumps(gaps))
     log(f"  {gaps['n_gaps']} gaps, {gaps['gap_ms']:.3f} ms in all; host ops "
         f"inside them (nested ops each count): " + ", ".join(
             f"{n} {t:.3f} ms" for n, t in gaps["host_ops"]))
@@ -1552,6 +1655,196 @@ def gpu_test_phase():
     log(f"gpu tests: {time.perf_counter() - t0:.1f} s")
 
 
+def records_without_mt(recs):
+    """PAF records as dicts, their mt: timing tag left out."""
+    out = [dataclasses.asdict(r) for r in recs]
+    for r in out:
+        r["tags"] = [t for t in r["tags"].split("\t") if t[:3] != "mt:"]
+    return out
+
+
+def pass_waits(stamps):
+    """A pass's host-clock stamps (``TurboMapper.last_pass``) -> ms: the
+    head (start to the first batch's rounds), the waits between batches'
+    rounds, each batch's rounds, and the wait for the rescued reads."""
+    rounds = stamps["rounds"]
+    return dict(
+        head_ms=(rounds[0][0] - stamps["start"]) * 1000,
+        between_ms=[(b[0] - a[1]) * 1000 for a, b in zip(rounds, rounds[1:])],
+        rounds_ms=[(b - a) * 1000 for a, b in rounds],
+        rescue_tail_ms=(stamps["rescues"][1] - stamps["rescues"][0]) * 1000)
+
+
+def warm_set(mapper, signals, label, gate=False):
+    """One untimed pass, then OVERLAP_PASSES warm passes with the
+    cross-batch overlap on and as many off, in turns (on, off, off, on,
+    ...), each with its wall, reads/s and waits.  Fails if a pass's records
+    differ from the first pass's apart from mt:, or, with ``gate``, if
+    every pass of the mapper's default way was slower than every pass of
+    the other way."""
+    import torch
+
+    n = len(signals)
+    default = mapper._overlap_batches
+
+    def one_pass(overlap):
+        mapper._overlap_batches = overlap
+        t0 = time.perf_counter()
+        recs = mapper.streaming_map(signals)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, recs
+
+    _, first = one_pass(default)                    # untimed
+    want = records_without_mt(first)
+    walls = {True: [], False: []}
+    for i in range(OVERLAP_PASSES):
+        for overlap in ((True, False) if i % 2 == 0 else (False, True)):
+            wall, recs = one_pass(overlap)
+            walls[overlap].append(wall)
+            same = records_without_mt(recs) == want
+            log(f"warm ({label}), overlap {'on ' if overlap else 'off'}: "
+                f"{wall:.3f} s = {n / wall:.3f} reads/s; records equal to "
+                f"the first pass's apart from mt: {same}; "
+                + json.dumps(pass_waits(mapper.last_pass)))
+            assert same, "records differ between overlap on and off"
+    mapper._overlap_batches = default
+    for overlap in (True, False):
+        w = walls[overlap]
+        log(f"warm ({label}), overlap {'on' if overlap else 'off'}: median "
+            f"{statistics.median(w):.3f} s = {n / statistics.median(w):.3f} "
+            "reads/s (" + ", ".join(f"{n / x:.3f}" for x in w) + ")")
+    assert not gate or min(walls[default]) <= max(walls[not default]), (
+        f"warm ({label}): every pass of the default (overlap "
+        f"{'on' if default else 'off'}) was slower than every pass of the "
+        "other way")
+
+
+def three_batch_phase(by_path, dev, work, genome_bases, oracle):
+    """Phase 10: the round-5 workload, THREE_BATCH_READS reads of phase 4's
+    genome (the reads of phase 4 are its first ones: simulate_reads draws
+    read by read) in batches of THREE_BATCH_B at HOST_THREADS host threads,
+    on phase 4's index.  The CLI run first, then warm passes with the
+    cross-batch overlap on and off on one mapper with phase 5's rescue
+    oracle (`oracle`), and at -t 1 at smaller read batches, then one
+    overlapped pass under torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from sigmap_tpu_torch import LAUNCHES, cli, reset_launches
+    from sigmap_tpu_torch.cli import build_parser, make_config
+    from sigmap_tpu_torch.index.build import SignalIndex
+    from sigmap_tpu_torch.io.signals import load_all_read_signals
+    from sigmap_tpu_torch.mapping import turbo as T
+
+    t_phase = time.perf_counter()
+    sub = os.path.join(work, "three_batch")
+    reads = make_workload(sub, genome_bases, THREE_BATCH_READS)
+    n = len(reads)
+    n_batches = -(-n // THREE_BATCH_B)
+    paf = os.path.join(sub, "out.paf")
+    map_args = ["-m", "-r", os.path.join(sub, "ref.fa"),
+                "-p", os.path.join(sub, "pore.model"),
+                "-x", os.path.join(work, "idx"),
+                "-s", os.path.join(sub, "signals"), "-o", paf,
+                "--read-batch", str(THREE_BATCH_B), "-t", str(HOST_THREADS)]
+
+    # --- through the CLI: its own tile store and rescue oracle (cold) ------
+    reset_launches()
+    rc = cli.main(map_args)
+    torch.cuda.synchronize()
+    launches = by_path["turbo3"] = dict(LAUNCHES)
+    assert rc == 0, f"three batches: mapping failed ({rc})"
+    run = cli.LAST_MAP
+    mapped, correct = score_paf(paf, reads)
+    log(f"three batches, CLI (-t {HOST_THREADS}, read batch {THREE_BATCH_B}"
+        f"): {run['reads']} reads in {run['map_s']:.3f} s = "
+        f"{run['reads'] / run['map_s']:.3f} reads/s; mapped {mapped}/{n}, "
+        f"correct {correct}/{n}; rescued {run['rescued']} "
+        f"({run['rescued_mapped']} mapped); launches {launches}")
+    assert mapped >= 0.99 * n, f"three batches: only {mapped}/{n} mapped"
+    assert correct >= 0.99 * n, f"three batches: only {correct}/{n} correct"
+    for k in ("peaks", "compress_keep", "sweep", "chain_fused"):
+        assert launches[k] > 0, f"three batches: {k} was not launched"
+    assert launches["peaks"] == n_batches, "B1 is launched once a batch"
+
+    # --- warm: the overlap on and off, alternated, on one mapper ----------
+    a = build_parser().parse_args(map_args)
+    cfg = make_config(a)
+    index = SignalIndex.load(a.ref_index)
+    mapper = T.TurboMapper(index, cfg, device=dev, oracle=oracle)
+    signals = load_all_read_signals(a.sig_dir, cfg.mapping.pa_lo,
+                                    cfg.mapping.pa_hi)
+    warm_set(mapper, signals, f"-t {HOST_THREADS}, read batch "
+             f"{THREE_BATCH_B}", gate=True)
+    # -t 1 at smaller read batches, the CLI's default first
+    for B in SWEEP_BATCHES:
+        small = dataclasses.replace(cfg, runtime=dataclasses.replace(
+            cfg.runtime, read_batch=B, num_threads=1))
+        small_mapper = T.TurboMapper(index, small, device=dev, oracle=oracle)
+        warm_set(small_mapper, signals[:SWEEP_READS],
+                 f"-t 1, read batch {B}", gate=B == SWEEP_BATCHES[0])
+        small_mapper.close()
+
+    # the head alone (batch 0; the rounds are not running): the host's
+    # staging of the pA into the pinned buffer, and all of prepare_batch
+    batch = signals[:THREE_BATCH_B]
+    NC = mapper.upload_batch(batch)[0].shape[1]
+    stage_ms, prep_ms = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        T.stage_batch(batch, THREE_BATCH_B, NC, cfg.mapping.chunk_size,
+                      cfg.mapping.max_num_chunks, pin=True)
+        stage_ms.append((time.perf_counter() - t0) * 1000)
+        t0 = time.perf_counter()
+        mapper.prepare_batch(batch)
+        torch.cuda.synchronize()
+        prep_ms.append((time.perf_counter() - t0) * 1000)
+    log(f"three batches: batch 0's head alone (NC={NC}): stage_batch "
+        + ", ".join(f"{x:.3f}" for x in stage_ms) + " ms; prepare_batch "
+        + ", ".join(f"{x:.3f}" for x in prep_ms) + " ms")
+
+    # --- one overlapped pass under the profiler ---------------------------
+    mapper._overlap_batches = True
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        mapper.streaming_map(signals)
+        torch.cuda.synchronize()
+        prof_s = time.perf_counter() - t0
+    tail_ms = pass_waits(mapper.last_pass)["rescue_tail_ms"]
+    mapper.close()
+    trace = os.path.join(work, "three_batch_trace.json")
+    prof.export_chrome_trace(trace)
+    busy_ms, by_name = device_busy(trace)
+    log(f"three batches, profiled overlapped pass: wall {prof_s * 1000:.3f} "
+        f"ms, device busy {busy_ms:.3f} ms, idle share "
+        f"{1 - busy_ms / (prof_s * 1000):.4f}; waiting for the last batch's "
+        f"rescued reads at {HOST_THREADS} threads {tail_ms:.3f} ms")
+    for name, (ms, cnt) in sorted(by_name.items(),
+                                  key=lambda kv: -kv[1][0])[:10]:
+        log(f"  device {ms:10.3f} ms {cnt:6d}x  {name[:70]}")
+    log_gaps("three batches", trace)
+    ov = stream_overlap(trace, ("peaks_kernel", "compress_keep_kernel"),
+                        ("sweep_kernel", "chain_fused_kernel"), n_batches)
+    log("three batches, side stream (batch_features) against main stream "
+        "(rounds), per batch: " + json.dumps(ov))
+    for i, b in enumerate(ov["per_batch"]):
+        log(f"  batch {i}: side-stream work {b['side_ms']:.3f} ms, of it "
+            f"{b['overlap_ms']:.3f} ms at once with main-stream work; B1/B2 "
+            f"at once with B3/B4 {b['named_overlap_ms']:.3f} ms")
+    assert [b["first_kernels"] for b in ov["per_batch"]] == [1] * n_batches, \
+        "the side stream's bursts are not one a batch"
+    # this shows that the two streams do not serialise, not that a head
+    # is hidden: warm_set's walls say that
+    for i in range(1, n_batches):
+        assert ov["per_batch"][i]["overlap_ms"] > 0, (
+            f"the streams serialise: batch {i}'s head ran while no "
+            f"main-stream work did")
+    del mapper, signals
+    torch.cuda.empty_cache()
+    log(f"phase 10: {time.perf_counter() - t_phase:.1f} s")
+
+
 def score_paf(path, reads):
     """(mapped, correct) against the simulation truth (bench.py accuracy)."""
     by_name = {}
@@ -1664,9 +1957,10 @@ def main():
                 ["-m", *common, "-x", os.path.join(work, "idx"),
                  "--read-batch", str(EXACT_READ_BATCH)])
     wide_phase(records, by_path, dev, work, reads, map_args, oracle)
-    del oracle
     torch.cuda.empty_cache()
     gpu_test_phase()
+    three_batch_phase(by_path, dev, work, int(args.genome_mb * 1e6), oracle)
+    del oracle
 
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=src, replaces=rep,

@@ -24,6 +24,8 @@ import json
 import os
 import shutil
 import subprocess
+import threading
+import uuid
 from pathlib import Path
 
 PKG = Path(__file__).resolve().parent
@@ -60,6 +62,10 @@ BUILD_LOG: dict = {}
 
 _kernels = None
 _native_ready = False
+# the first build and load of either library happens once in a process,
+# whichever of its threads gets there first (a mapper prepares batches on a
+# thread of its own)
+_lock = threading.Lock()
 
 
 def reset_launches() -> None:
@@ -76,6 +82,12 @@ def _digest(paths, extra: tuple) -> str:
     return h.hexdigest()[:16]
 
 
+def _tmp_suffix() -> str:
+    """A name part of this call's temporary files: no other process, thread
+    or call writes to them."""
+    return f"{os.getpid()}.{uuid.uuid4().hex[:12]}"
+
+
 def _nvcc() -> str:
     home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
     cand = Path(home) / "bin" / "nvcc"
@@ -90,18 +102,24 @@ def _nvcc() -> str:
 def kernels() -> ctypes.CDLL:
     """The CUDA kernel library, built on first call."""
     global _kernels
-    if _kernels is not None:
-        return _kernels
+    if _kernels is None:
+        with _lock:
+            if _kernels is None:
+                _kernels = _load_kernels()
+    return _kernels
+
+
+def _load_kernels() -> ctypes.CDLL:
     srcs = sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
     tag = _digest(srcs, NVCC_FLAGS)
     out = BUILD_DIR / f"libsigmap_kernels_{tag}.so"
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        sfx = _tmp_suffix()
+        tmp = out.with_suffix(f".{sfx}.tmp")
         # one nvcc per source, all at once, then one link
         cus = [s for s in srcs if s.suffix == ".cu"]
-        objs = [str(BUILD_DIR / f"{s.stem}_{tag}.{os.getpid()}.o")
-                for s in cus]
+        objs = [str(BUILD_DIR / f"{s.stem}_{tag}.{sfx}.o") for s in cus]
         procs = [subprocess.Popen(
             [_nvcc(), *NVCC_FLAGS, "-c", "-o", obj, str(s)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
@@ -128,7 +146,6 @@ def kernels() -> ctypes.CDLL:
         BUILD_LOG.update(json.loads(log_path.read_text()))
     lib = ctypes.CDLL(str(out))
     _bind(lib)
-    _kernels = lib
     return lib
 
 
@@ -165,7 +182,7 @@ def native_library(src: Path = CSRC / "core.cc",
     out = build_dir / f"libsigmap_core_{_digest([src], (NATIVE_CXXFLAGS,))}.so"
     if not out.exists():
         build_dir.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        tmp = out.with_suffix(f".{_tmp_suffix()}.tmp")
         r = subprocess.run(["g++", *NATIVE_CXXFLAGS.split(), "-shared", "-o",
                             str(tmp), str(src)], capture_output=True, text=True)
         if r.returncode != 0:
@@ -183,8 +200,11 @@ def native() -> None:
         return
     from . import native as nat
 
-    if nat._lib is None:
-        nat._SO = native_library()
-    if not nat.available():
-        raise RuntimeError("the native core (csrc/core.cc) did not load")
-    _native_ready = True
+    with _lock:
+        if _native_ready:
+            return
+        if nat._lib is None:
+            nat._SO = native_library()
+        if not nat.available():
+            raise RuntimeError("the native core (csrc/core.cc) did not load")
+        _native_ready = True

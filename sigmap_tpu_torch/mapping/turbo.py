@@ -2,21 +2,28 @@
 
 Counterpart of ``sigmap_tpu/mapping/turbo.py`` (read its docstring for the
 algorithm and its documented divergences from the exact path).  Per read
-batch: host transport quantization, one upload, then event detection for
-all of the batch's chunks (``batch_features``: kernels B1 and B2).  Per
+batch: one upload of its pA, the reference's transport quantization on the
+device (``quantize``), then event detection for all of the batch's chunks
+(``batch_features``: kernels B1 and B2).  Per
 lockstep round (``turbo_round``): seed windows, the sweep radius search
 (kernel B3), anchors in qpos-major [A, B] layout, fused chaining (kernel
 B4), candidacy gates, stop rules and best-so-far state, all on the device;
 the host reads one packed [B+2] array per round.  Reads that end unmapped
 after a capacity overflow are re-mapped by the host exact engine (rescue).
 
-Batches are mapped one after another on the caller's stream.  The tile
-store is built on the host (``SweepIndex.build_cached(materialize=True)``)
-and uploaded once.
+At OVERLAP_MIN_BATCH reads a batch and more, batch N+1's head (its pA
+staged in a pinned host buffer, the upload, the quantization and
+``batch_features``) runs on a prepare thread, on a side CUDA stream, while
+batch N's rounds run on the caller's stream; the caller's stream waits on
+the batch's event before its first round (``TurboMapper.streaming_map``).
+Smaller batches are prepared inline, one after another.  The tile store is
+built on the host (``SweepIndex.build_cached(materialize=True)``) and
+uploaded once.
 """
 
 from __future__ import annotations
 
+import contextlib
 import sys
 import threading
 import time
@@ -363,64 +370,96 @@ def batch_features(q, qoff, qscale, n_full, p: TurboParams,
     return feats.reshape(B, NC, F), counts.reshape(B, NC)
 
 
-def quantize_batch(batch, B, NC, Cs, max_chunks, threads: int = 1):
-    """Host-side transport quantization: pA f32 -> uint16 + per-read affine
-    (turbo.py:440-473, copied: host code)."""
+def stage_batch(batch, B, NC, Cs, max_chunks, pin: bool = False):
+    """Host half of the transport quantization (turbo.py:440-473): each
+    read's first L = min(length, NC * Cs) pA samples as f32 in a row of pa
+    [B, NC * Cs] (pinned if ``pin``; past L a row holds whatever the
+    buffer held), and per read L, the DAC affine (scale, off) that the
+    reference tries first, and n_full.  Rows past the batch's reads have L
+    = 0, scale 1, off 0, n_full 0.  Returns (pa tensor, L, scale, off,
+    n_full numpy arrays)."""
+    pa = torch.empty((B, NC * Cs), dtype=torch.float32, pin_memory=pin)
+    rows = pa.numpy()
+    L = np.zeros(B, np.int32)
+    scale = np.ones(B, np.float32)
+    off = np.zeros(B, np.float32)
     n_full = np.zeros(B, np.int32)
-    q = np.zeros((B, NC, Cs), np.uint16)
-    qoff = np.zeros(B, np.float32)
-    qscale = np.ones(B, np.float32)
-    if threads > 1 and len(batch) > 1:
-        def work(lo_hi):
-            lo, hi = lo_hi
-            for j in range(lo, hi):
-                _quantize_one(batch[j], j, q, qoff, qscale, n_full, NC, Cs,
-                              max_chunks)
-
-        n = len(batch)
-        step = -(-n // threads)
-        spans = [(lo, min(lo + step, n)) for lo in range(0, n, step)]
-        with ThreadPoolExecutor(threads) as ex:
-            list(ex.map(work, spans))
-        return q, qoff, qscale, n_full
     for i, s in enumerate(batch):
-        _quantize_one(s, i, q, qoff, qscale, n_full, NC, Cs, max_chunks)
-    return q, qoff, qscale, n_full
+        n_full[i] = min(s.length // Cs, max_chunks)
+        L[i] = min(s.length, NC * Cs)
+        rows[i, :L[i]] = s.pa[:L[i]]
+        scale[i] = (np.float32(s.range / s.digitisation) if s.digitisation
+                    else 0)
+        off[i] = np.float32(s.offset)
+    return pa, L, scale, off, n_full
 
 
-def _quantize_one(s, i, q, qoff, qscale, n_full, NC, Cs, max_chunks):
-    n_full[i] = min(s.length // Cs, max_chunks)
-    L = min(s.length, NC * Cs)
-    pa = s.pa[:L].astype(np.float32)
-    ku = None
-    scale = np.float32(s.range / s.digitisation) if s.digitisation else 0
-    off = np.float32(s.offset)
-    if scale > 0 and L:
-        k = np.rint(pa / scale - off)
-        if 0 <= k.min(initial=0) and k.max(initial=0) <= 65535:
-            cand = k.astype(np.uint16)
-            if np.array_equal(
-                (cand.astype(np.float32) + off) * scale, pa
-            ):
-                ku = cand
-    if ku is None and L:
-        lo = np.float32(pa.min())
-        hi = np.float32(pa.max())
-        scale = np.float32(max(hi - lo, 1e-6) / 65000.0)
-        off = np.float32(lo / scale)
-        ku = np.clip(np.rint(pa / scale - off), 0, 65535).astype(
-            np.uint16
-        )
-    if L:
-        q[i].reshape(-1)[:L] = ku
-    qoff[i] = off
-    qscale[i] = scale
-    return q, qoff, qscale, n_full
+def quantize(pa, L, scale, off):
+    """Device half of the transport quantization: pa [B, N] f32 on the
+    device and the host arrays of ``stage_batch`` -> (q [B, N] i32 in
+    0..65535, qoff [B] f32, qscale [B] f32) on the device, equal to the
+    reference's host quantization (turbo.py:440-473) element for element.
+    A read keeps its DAC affine if every rint(pa / scale - off) of its
+    first L samples lies in 0..65535 and maps back to its pA exactly;
+    otherwise its affine spans its min and max.  Which reads keep it, and
+    their min and max, come to the host once, where the fallback affine is
+    computed with the reference's own scalar arithmetic.  q is 0 past L."""
+    dev = pa.device
+    inside = (torch.arange(pa.shape[1], device=dev)[None, :]
+              < torch.from_numpy(L).to(dev)[:, None])
+    s0 = torch.from_numpy(scale).to(dev)[:, None]
+    o0 = torch.from_numpy(off).to(dev)[:, None]
+    k = torch.where(inside, torch.round(pa / s0 - o0), 0.0)
+    fits = ((k.amin(1) >= 0) & (k.amax(1) <= 65535)
+            & torch.where(inside, (k + o0) * s0 == pa, True).all(1))
+    lo = torch.where(inside, pa, torch.inf).amin(1)
+    hi = torch.where(inside, pa, -torch.inf).amax(1)
+    fits, lo, hi = (t.cpu().numpy() for t in (fits, lo, hi))
+    qoff, qscale = off.copy(), scale.copy()
+    for i in np.flatnonzero((L > 0) & ~((scale > 0) & fits)):
+        qscale[i] = np.float32(max(hi[i] - lo[i], 1e-6) / 65000.0)
+        qoff[i] = np.float32(lo[i] / qscale[i])
+    qoff_d, qscale_d = (torch.from_numpy(a).to(dev) for a in (qoff, qscale))
+    k = torch.clamp(torch.round(pa / qscale_d[:, None] - qoff_d[:, None]),
+                    0, 65535)
+    return torch.where(inside, k, 0.0).to(torch.int32), qoff_d, qscale_d
 
+
+# The smallest read batch that TurboMapper prepares on its prepare thread
+# while the previous batch maps.  The prepare thread and the round loop
+# dispatch torch ops under one interpreter lock, and at once they slow
+# each other: the rounds beside a preparation take longer by about as much
+# as a small batch's head (mostly op dispatch) takes inline.  Measured
+# faster at 2048 reads a batch, slower at 128 (PERF.md §6).
+OVERLAP_MIN_BATCH = 2048
 
 # Chunk-count buckets of the reference mapper (turbo.py:715).  Kept because
 # the fallback quantization's min/max window depends on NC.
 _NC_BUCKETS = (1, 2, 3, 4, 6, 8, 12, 16, 24, 30)
+
+
+@dataclass
+class PreparedBatch:
+    """One batch uploaded, quantized and event-detected (``prepare_batch``):
+    its device tensors, the host copy of ``n_full``, and on a GPU the event
+    recorded after the last of its device work (None on the CPU)."""
+
+    feats: torch.Tensor       # [B, NC, F] f32
+    counts: torch.Tensor      # [B, NC] i32
+    n_full_d: torch.Tensor    # [B] i32 on the device
+    n_full: np.ndarray        # [B] i32 on the host
+    event: torch.cuda.Event | None
+
+
+@contextlib.contextmanager
+def _on_stream(device: torch.device, stream):
+    """On a GPU: ``device`` as this thread's current device and ``stream``
+    (None: the thread's current stream) as its current stream."""
+    if device.type != "cuda":
+        yield
+        return
+    with torch.cuda.device(device), torch.cuda.stream(stream):
+        yield
 
 
 class TurboMapper:
@@ -455,6 +494,13 @@ class TurboMapper:
         self._ovf_warned = False
         self.n_rescued = 0          # reads re-mapped by the exact engine
         self.n_rescued_mapped = 0
+        # the prepare thread (turbo.py:599) and, on a GPU, its side stream
+        self._prep_pool = ThreadPoolExecutor(
+            1, thread_name_prefix="sigmap-turbo-prepare")
+        self._side = (torch.cuda.Stream(self.device)
+                      if self.device.type == "cuda" else None)
+        if config.runtime.read_batch < OVERLAP_MIN_BATCH:
+            self._overlap_batches = False
 
     def _get_oracle(self):
         with self._oracle_lock:
@@ -479,15 +525,58 @@ class TurboMapper:
         )
 
     def close(self):
+        self._prep_pool.shutdown(wait=True)
         if self._rescue_pool is not None:
             self._rescue_pool.shutdown(wait=True)
+
+    # cross-batch overlap (turbo.py:645-651): batch N+1 is prepared while
+    # batch N maps.  False prepares each batch inline on the caller's
+    # stream, for a mapper whose processes must all dispatch their device
+    # work in one order; __init__ sets it False below OVERLAP_MIN_BATCH
+    _overlap_batches = True
 
     def streaming_map(self, signals: list[ReadSignal]) -> list[PAFRecord]:
         records: dict[int, PAFRecord] = {}
         B = self.cfg.runtime.read_batch
-        for base in range(0, len(signals), B):
-            self._map_batch(signals[base: base + B], base, records)
-        return self._drain_rescues(records, len(signals))
+        batches = [(base, signals[base: base + B])
+                   for base in range(0, len(signals), B)]
+        # where the pass spent its time, on the host clock (perf_counter
+        # s): its start, each batch's rounds and the wait for the rescues
+        self.last_pass = stamps = dict(start=time.perf_counter(), rounds=[],
+                                       rescues=None)
+
+        def map_one(base, batch, prep):
+            t0 = time.perf_counter()
+            self._map_batch(batch, base, records, prep)
+            stamps["rounds"].append((t0, time.perf_counter()))
+
+        if not self._overlap_batches:
+            for base, batch in batches:
+                map_one(base, batch, self.prepare_batch(batch))
+        elif batches:
+            # batch N+1's head runs on the prepare thread, on the side
+            # stream, while batch N's rounds run here (turbo.py:663-676)
+            pending = self._prep_pool.submit(self.prepare_batch,
+                                             batches[0][1], self._side)
+            try:
+                for i, (base, batch) in enumerate(batches):
+                    fut, pending = pending, None
+                    prep = fut.result()
+                    if i + 1 < len(batches):
+                        pending = self._prep_pool.submit(
+                            self.prepare_batch, batches[i + 1][1], self._side)
+                    map_one(base, batch, prep)
+            except BaseException as e:
+                # the next batch's preparation ends before the error
+                # propagates
+                if pending is not None and pending.exception() is not None:
+                    e.add_note("the next batch's preparation failed too: "
+                               f"{pending.exception()!r}")
+                raise
+        t0 = time.perf_counter()
+        out = self._drain_rescues(records, len(signals))
+        stamps["rescues"] = (t0, time.perf_counter())
+        return out
 
     def _drain_rescues(self, records: dict, n: int) -> list[PAFRecord]:
         if self._rescue_futs:
@@ -508,7 +597,8 @@ class TurboMapper:
         return [records[i] for i in range(n) if i in records]
 
     def upload_batch(self, batch: list[ReadSignal]):
-        """Quantize one batch on the host and upload it: (q [B, NC, Cs] i32,
+        """Copy one batch's pA to the device on the current stream (from a
+        pinned buffer on a GPU) and quantize it there: (q [B, NC, Cs] i32,
         qoff [B] f32, qscale [B] f32, n_full [B] i32) on the device, and
         n_full on the host."""
         m = self.cfg.mapping
@@ -519,26 +609,48 @@ class TurboMapper:
         NC = next((nc for nc in _NC_BUCKETS
                    if nc >= nc_raw or nc >= m.max_num_chunks),
                   _NC_BUCKETS[-1])
-        q, qoff, qscale, n_full = quantize_batch(
+        pa, L, scale, off, n_full = stage_batch(
             batch, B, NC, Cs, m.max_num_chunks,
-            threads=self.cfg.runtime.num_threads,
-        )
-        dev = self.device
-        # uint16 travels as its int16 bit pattern and is widened on device
-        qd = torch.from_numpy(q.view(np.int16)).to(dev).to(torch.int32) \
-            & 0xFFFF
-        return (qd, torch.from_numpy(qoff).to(dev),
-                torch.from_numpy(qscale).to(dev),
-                torch.from_numpy(n_full).to(dev), n_full)
+            pin=self.device.type == "cuda")
+        q, qoff, qscale = quantize(pa.to(self.device, non_blocking=True),
+                                   L, scale, off)
+        return (q.reshape(B, NC, Cs), qoff, qscale,
+                torch.from_numpy(n_full).to(self.device), n_full)
 
-    def _map_batch(self, batch: list[ReadSignal], base: int, records: dict):
+    def prepare_batch(self, batch: list[ReadSignal],
+                      stream=None) -> PreparedBatch:
+        """Upload, quantize and event-detect one batch (``batch_features``:
+        kernels B1 and B2, turbo.py:698-740), the device work on ``stream``
+        (None: the calling thread's current stream).  On the prepare thread
+        with the side stream this is batch N+1's head, which runs while
+        batch N's rounds do."""
+        m = self.cfg.mapping
+        with _on_stream(self.device, stream):
+            qd, qoff, qscale, n_full_d, n_full = self.upload_batch(batch)
+            feats, counts = batch_features(
+                qd, qoff, qscale, n_full_d, self.p, self.cfg.event,
+                m.compress_delta,
+            )
+            event = None
+            if self.device.type == "cuda":
+                event = torch.cuda.Event()
+                event.record()
+        return PreparedBatch(feats, counts, n_full_d, n_full, event)
+
+    def _map_batch(self, batch: list[ReadSignal], base: int, records: dict,
+                   prep: PreparedBatch):
         m = self.cfg.mapping
         B = self.cfg.runtime.read_batch
-        qd, qoff, qscale, n_full_d, n_full = self.upload_batch(batch)
-        feats_all, counts_all = batch_features(
-            qd, qoff, qscale, n_full_d, self.p, self.cfg.event,
-            m.compress_delta,
-        )
+        feats_all, counts_all, n_full_d = prep.feats, prep.counts, \
+            prep.n_full_d
+        n_full = prep.n_full
+        if prep.event is not None:
+            # the rounds wait for the batch's head; the allocator must not
+            # hand its tensors to the side stream again before they are read
+            main = torch.cuda.current_stream(self.device)
+            main.wait_event(prep.event)
+            for t in (feats_all, counts_all, n_full_d):
+                t.record_stream(main)
         st = init_round_state(B, self.p.RING, self.device)
         mt = np.zeros(B)
         prev_done = n_full == 0

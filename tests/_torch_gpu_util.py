@@ -36,6 +36,32 @@ SEARCH_TIGHT = dict(seeds_per_tile=16, cap_per_seed=256, surv_per_tile=32,
                     matches_per_tile=8)
 
 
+def quantize_reads(signals):
+    """signals' first six reads (DAC-derived) and reads that take every
+    other branch of the transport quantization: not from a DAC (noise
+    added), no digitisation, raw values outside 0..65535 (a large offset),
+    empty, shorter than a chunk, longer than four chunks, constant.  Reads
+    6, 7, 8 and 12 take the fallback affine."""
+    rng = np.random.default_rng(3)
+    out = list(signals[:6])
+    s = signals[0]
+    noisy = (s.pa + rng.normal(0, 0.01, s.length)).astype(np.float32)
+    out += [
+        ReadSignal("noisy", s.digitisation, s.range, s.offset, noisy),
+        ReadSignal("nodig", 0.0, s.range, s.offset, s.pa.copy()),
+        ReadSignal("offset", s.digitisation, s.range, s.offset + 70000.0,
+                   s.pa.copy()),
+        ReadSignal("empty", s.digitisation, s.range, s.offset,
+                   np.zeros(0, np.float32)),
+        ReadSignal("short", s.digitisation, s.range, s.offset, s.pa[:1500]),
+        ReadSignal("long", s.digitisation, s.range, s.offset,
+                   np.concatenate([s.pa] * 6)),
+        ReadSignal("flat", 0.0, s.range, s.offset,
+                   np.full(5000, 91.25, np.float32)),
+    ]
+    return out
+
+
 @pytest.fixture
 def cuda_device():
     """The first CUDA device; the test is skipped where there is none (the

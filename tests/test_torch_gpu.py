@@ -24,7 +24,8 @@ import torch
 from _torch_gpu_util import (  # noqa: F401 - fixtures
     DIM, DRIVER_CFG, RADIUS, SEARCH_KW, SEARCH_RADIUS, SEARCH_TIGHT,
     closest_k_queries, cuda_device, debug_work, driver_setup, gpu_genome,
-    gpu_pore, kernels_case, ragged_pairs, random_chain_case, search_setup,
+    gpu_pore, kernels_case, quantize_reads, ragged_pairs, random_chain_case,
+    search_setup,
     sweep_index, uniform_pairs,
 )
 from sigmap_tpu_torch import LAUNCHES
@@ -262,6 +263,58 @@ def test_mapper_on_gpu_matches_cpu(driver_setup, cuda_device):
             g["tags"] = [t for t in g["tags"].split("\t") if t[:2] != "mt"]
             w["tags"] = [t for t in w["tags"].split("\t") if t[:2] != "mt"]
             assert g == w
+
+
+def test_turbo_overlap_on_gpu_matches_sequential(driver_setup, cuda_device):
+    """The turbo mapper on the card over four batches (8 reads, read batch
+    2): batch N+1 prepared on the side stream while batch N maps (set on:
+    the batches are below OVERLAP_MIN_BATCH) gives every record field and
+    tag but mt: as each batch prepared inline on the caller's stream,
+    exactly; B1 runs once a batch either way."""
+    from sigmap_tpu_torch.config import RuntimeConfig, SigmapConfig
+    from sigmap_tpu_torch.mapping import turbo as T
+
+    idx, _, signals = driver_setup
+    cfg = SigmapConfig(runtime=RuntimeConfig(read_batch=2))
+    mapper = T.TurboMapper(idx, cfg, T.TurboParams(S=256, K=16, RING=64,
+                                                   TILE=256),
+                           device=cuda_device)
+    got = {}
+    try:
+        for overlap in (True, False, True):
+            mapper._overlap_batches = overlap
+            before = LAUNCHES["peaks"]
+            recs = mapper.streaming_map(signals)
+            torch.cuda.synchronize()
+            assert LAUNCHES["peaks"] == before + 4
+            recs = [dataclasses.asdict(r) for r in recs]
+            for r in recs:
+                r["tags"] = [t for t in r["tags"].split("\t")
+                             if t[:2] != "mt"]
+            got.setdefault(overlap, recs)
+            assert recs == got[overlap]
+    finally:
+        mapper.close()
+    assert len(got[True]) == len(signals)
+    assert got[True] == got[False]
+
+
+@pytest.mark.parametrize("NC", [1, 4])
+def test_quantize_on_gpu_matches_cpu(driver_setup, cuda_device, NC):
+    """The transport quantization's device half on the card, from a pinned
+    buffer, equals its run on the CPU (which tier-1 holds to the JAX
+    package's host quantization) on every branch, exactly."""
+    from sigmap_tpu_torch.mapping import turbo as T
+
+    reads = quantize_reads(driver_setup[2])
+    B, Cs = len(reads) + 3, 4000
+    pa, L, scale, off, n_full = T.stage_batch(reads, B, NC, Cs, 30, pin=True)
+    assert pa.is_pinned()
+    got = T.quantize(pa.to(cuda_device, non_blocking=True), L, scale, off)
+    want = T.quantize(pa.clone(), L, scale, off)
+    for g, w in zip(got, want):
+        assert g.device.type == "cuda"
+        assert torch.equal(g.cpu(), w)
 
 
 def test_align_modes_on_gpu_match_cpu(debug_work, cuda_device):

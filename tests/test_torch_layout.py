@@ -28,7 +28,8 @@ MODULES = [
     "sigmap_tpu_torch.io.signals", "sigmap_tpu_torch.io.slow5",
     "sigmap_tpu_torch.io.fast5", "sigmap_tpu_torch.index.build",
     "sigmap_tpu_torch.index.sweep", "sigmap_tpu_torch.mapping.chain",
-    "sigmap_tpu_torch.ops.cwt",
+    "sigmap_tpu_torch.ops.cwt", "sigmap_tpu_torch.evaluate",
+    "sigmap_tpu_torch.ops.fastdtw",
 ]
 
 BLOCKER = """
@@ -178,6 +179,19 @@ def test_chip_smoke_device_busy_counts_overlap_once(tmp_path):
     assert by_name == {"k": (2.0, 2), "Memcpy HtoD": (0.5, 1)}
 
 
+def test_chip_smoke_pass_waits():
+    """Phase 10's waits come from the mapper's own stamps: the head up to
+    the first batch's rounds, the gaps between batches' rounds, each
+    batch's rounds, and the rescue wait, in ms."""
+    sys.path.insert(0, ROOT)
+    from chip_smoke import pass_waits
+
+    w = pass_waits(dict(start=1.0, rounds=[(1.25, 1.5), (1.5625, 2.0)],
+                        rescues=(2.0, 2.125)))
+    assert w == dict(head_ms=250.0, between_ms=[62.5],
+                     rounds_ms=[250.0, 437.5], rescue_tail_ms=125.0)
+
+
 def test_chip_smoke_fails_without_the_repo(tmp_path):
     """chip_smoke.py alone (no package beside it) exits non-zero and prints
     no result line, even where a CUDA device is visible: the device check is
@@ -237,6 +251,72 @@ def test_chip_smoke_host_gaps_names_the_ops_in_each_gap(tmp_path):
     assert (g["after"], g["before"]) == ("k3", "(end of the pass)")
     assert g["host_ops"] == [("cudaDeviceSynchronize", 0.01)]
     assert gaps[2]["host_ops"] == [] and gaps[2]["host_op_share"] == 0.0
+
+
+def _stream_trace(tmp_path, side_stream=3):
+    """A chrome trace of three batches: the side stream's heads (a copy,
+    B1, B2, glue) against the main stream's rounds (B3, B4, glue)."""
+    import json
+
+    def k(name, ts, end, stream, cat="kernel"):
+        return dict(ph="X", cat=cat, name=name, ts=ts, dur=end - ts,
+                    args=dict(stream=stream))
+
+    s, m = side_stream, 7
+    ev = [k("void sweep_kernel<6>(float const*)", 0, 100, m),
+          k("void chain_fused_kernel<false>(int const*)", 150, 160, m),
+          k("void sweep_kernel<6>(float const*)", 300, 400, m),
+          k("elementwise_kernel", 420, 450, m),
+          k("void chain_fused_kernel<false>(int const*)", 500, 510, m),
+          k("Memcpy DtoH", 520, 530, m, "gpu_memcpy"),
+          # batch 0: before any round
+          k("Memcpy HtoD", -50, -40, s, "gpu_memcpy"),
+          k("peaks_kernel(float const*)", -30, -20, s),
+          k("compress_keep_kernel(float const*)", -15, -10, s),
+          # batch 1: during the first round's B3
+          k("Memcpy HtoD", 50, 60, s, "gpu_memcpy"),
+          k("peaks_kernel(float const*)", 70, 75, s),
+          k("compress_keep_kernel(float const*)", 80, 82, s),
+          k("scatter_kernel", 85, 88, s),
+          # batch 2: B1 under B3, B2 under a glue kernel
+          k("Memcpy HtoD", 380, 390, s, "gpu_memcpy"),
+          k("peaks_kernel(float const*)", 395, 398, s),
+          k("compress_keep_kernel(float const*)", 430, 440, s),
+          dict(ph="X", cat="cpu_op", name="aten::add", ts=0, dur=900),
+          dict(ph="i", cat="kernel", name="peaks_kernel", ts=5)]
+    path = tmp_path / "trace.json"
+    path.write_text(json.dumps({"traceEvents": ev}))
+    return str(path)
+
+
+def test_chip_smoke_stream_overlap_per_batch(tmp_path):
+    """Phase 10's measure: the side stream's bursts, one a batch, and the
+    time each ran at once with the main stream's work, and its B1/B2 with
+    B3/B4 alone."""
+    sys.path.insert(0, ROOT)
+    from chip_smoke import stream_overlap
+
+    got = stream_overlap(_stream_trace(tmp_path),
+                         ("peaks_kernel", "compress_keep_kernel"),
+                         ("sweep_kernel", "chain_fused_kernel"), 3)
+    assert (got["side_stream"], got["main_stream"]) == (3, 7)
+    want = [(0.025, 0.0, 0.0), (0.020, 0.020, 0.007),
+            (0.023, 0.023, 0.003)]
+    for b, (side, both, named) in zip(got["per_batch"], want):
+        assert b["side_ms"] == pytest.approx(side)
+        assert b["overlap_ms"] == pytest.approx(both)
+        assert b["named_overlap_ms"] == pytest.approx(named)
+        assert b["first_kernels"] == 1
+
+
+def test_chip_smoke_stream_overlap_fails_on_one_stream(tmp_path):
+    """When B1 ran on the main stream, the overlap is not there."""
+    sys.path.insert(0, ROOT)
+    from chip_smoke import stream_overlap
+
+    with pytest.raises(AssertionError, match="overlap is not there"):
+        stream_overlap(_stream_trace(tmp_path, side_stream=7),
+                       ("peaks_kernel",), ("sweep_kernel",), 3)
 
 
 @pytest.mark.parametrize("kb", [1, 4, 8])

@@ -7,6 +7,7 @@ package are read by the other (the formats are shared).
 """
 
 import dataclasses
+import io
 import os
 
 import numpy as np
@@ -14,6 +15,7 @@ import pytest
 
 import sigmap_tpu.cli as j_cli
 import sigmap_tpu.config as j_config
+import sigmap_tpu.evaluate as j_evaluate
 import sigmap_tpu.index.build as j_build
 import sigmap_tpu.index.sweep as j_sweep
 import sigmap_tpu.io.fast5 as j_fast5
@@ -25,10 +27,12 @@ import sigmap_tpu.io.slow5 as j_slow5
 import sigmap_tpu.mapping.chain as j_chain
 import sigmap_tpu.native as j_native
 import sigmap_tpu.ops.cwt as j_cwt
+import sigmap_tpu.ops.fastdtw as j_fastdtw
 import sigmap_tpu.synth as j_synth
 import sigmap_tpu.utils as j_utils
 import sigmap_tpu_torch.cli as p_cli
 import sigmap_tpu_torch.config as p_config
+import sigmap_tpu_torch.evaluate as p_evaluate
 import sigmap_tpu_torch.index.build as p_build
 import sigmap_tpu_torch.index.sweep as p_sweep
 import sigmap_tpu_torch.io.fast5 as p_fast5
@@ -40,6 +44,7 @@ import sigmap_tpu_torch.io.slow5 as p_slow5
 import sigmap_tpu_torch.mapping.chain as p_chain
 import sigmap_tpu_torch.native as p_native
 import sigmap_tpu_torch.ops.cwt as p_cwt
+import sigmap_tpu_torch.ops.fastdtw as p_fastdtw
 import sigmap_tpu_torch.synth as p_synth
 import sigmap_tpu_torch.utils as p_utils
 from _torch_util import jax_native_from_source  # noqa: F401 - fixture
@@ -349,6 +354,106 @@ def case_native(data, tmp):
         np.testing.assert_array_equal(a, b)
 
 
+def _evaluate_records(reads):
+    """PAF records of the simulated reads: mapped on the true locus and
+    strand, mapped on the wrong strand, mapped elsewhere, unmapped, without
+    tags, and one read with no record at all."""
+    recs = []
+    for i, r in enumerate(reads[:-1]):
+        kind = i % 5
+        lo = r.ref_start if kind != 2 else r.ref_end + 10_000
+        mapped = kind in (0, 1, 2)
+        tags = (f"mt:f:{1.5 * i + 0.25:.6f}\tci:i:{i % 3 + 1}\tsl:i:1000"
+                if kind != 4 else "")
+        recs.append(j_paf.PAFRecord(
+            read_id=i, read_name=r.read_id, read_length=1000,
+            read_start=0, read_end=500 if mapped else 0, ref_index=0,
+            fragment_start=lo if mapped else 0,
+            fragment_length=(r.ref_end - r.ref_start) if mapped else 0,
+            mapq=60 if mapped else 61,
+            direction=(r.strand if kind != 1 else 1 - r.strand)
+            if mapped else 0, tags=tags))
+    return recs
+
+
+def case_evaluate(data, tmp):
+    """The same records against the same truth, and the same annotated PAF
+    file: equal counts, times and printed report."""
+    _, _, reads = data
+    recs = _evaluate_records(reads)
+    outs = []
+    for ev in (j_evaluate, p_evaluate):
+        out = io.StringIO()
+        res = ev.evaluate_against_truth(recs, reads, out=out)
+        outs.append((dataclasses.astuple(res), res.precision, res.recall,
+                     res.f1, out.getvalue()))
+    assert outs[0] == outs[1]
+    assert outs[0][0][:3] != (0, 0, 0)
+    paf = tmp / "annotated.paf"
+    paf.write_text(
+        "r1\t100\t0\t50\t+\tc\t1000\t10\t60\t100\t51\t60\t"
+        "mt:f:5.0\tci:i:2\tsl:i:100\tkl:Z:tp\n"
+        "r2\t100\t*\t*\t*\t*\t*\t*\t*\t*\t*\t61\tmt:f:1.0\tci:i:1"
+        "\tkl:Z:fn\n"
+        "r3\t90\t0\t40\t-\tc\t1000\t20\t70\t50\t51\t20\tmt:f:7.25"
+        "\tci:i:3\tkl:Z:fp\n"
+        "r4\t80\t*\t*\t*\t*\t*\t*\t*\t*\t*\t61\tmt:f:0.5\tkl:Z:tn\n"
+        "r5\t70\t*\t*\t*\t*\t*\t*\t*\t*\t*\t61\tmt:f:9.0\tkl:Z:na\n"
+        "short\tline\n")
+    outs = []
+    for ev in (j_evaluate, p_evaluate):
+        out = io.StringIO()
+        res = ev.evaluate_annotated_paf(str(paf), out=out)
+        outs.append((dataclasses.astuple(res), out.getvalue()))
+    assert outs[0] == outs[1]
+    assert outs[0][0][:4] == (1, 1, 1, 1)
+
+
+def _dtw_pair(seed, tlen=400, sub=50, rep=3):
+    """tests/test_ops.py:_pair: a target and a stretched, noisy piece."""
+    rng = np.random.default_rng(seed)
+    t = rng.normal(0, 1, tlen).astype(np.float32)
+    q = np.repeat(t[100: 100 + sub], rep) + rng.normal(
+        0, 0.02, sub * rep).astype(np.float32)
+    return t, q
+
+
+def _same_dtw(a, b):
+    """Equal (distance, path, end[, cigar]) tuples, exactly."""
+    assert len(a) == len(b)
+    for x, y in zip(a, b):
+        if isinstance(x, np.ndarray):
+            np.testing.assert_array_equal(x, y)
+        else:
+            assert x == y
+
+
+def case_ops_fastdtw(data, tmp):
+    """tests/test_ops.py's fastdtw inputs (its _pair at seeds 0 and 2, the
+    radii 30 and 2, test_cigar_flags' path) through both packages: the full
+    DTW, fastdtw, the reduction, the window dilation and the per-base
+    CIGAR, exactly."""
+    for seed in (0, 2):
+        t, q = _dtw_pair(seed)
+        _same_dtw(j_fastdtw.dtw_windowed(t, q, None),
+                  p_fastdtw.dtw_windowed(t, q, None))
+        for radius in (30, 2):
+            _same_dtw(j_fastdtw.fastdtw(t, q, radius=radius),
+                      p_fastdtw.fastdtw(t, q, radius=radius))
+        np.testing.assert_array_equal(j_fastdtw.reduce_by_half(q),
+                                      p_fastdtw.reduce_by_half(q))
+        _, path, _ = j_fastdtw.dtw_windowed(j_fastdtw.reduce_by_half(t),
+                                            j_fastdtw.reduce_by_half(q), None)
+        for a, b in zip(j_fastdtw.expand_window(path, len(t), len(q), 2),
+                        p_fastdtw.expand_window(path, len(t), len(q), 2)):
+            np.testing.assert_array_equal(a, b)
+        assert j_fastdtw.print_alignment(path) == \
+            p_fastdtw.print_alignment(path)
+    path = [(0, 0, 0), (1, 1, 0), (1, 2, 1), (1, 3, 2), (2, 4, 0), (3, 4, 3)]
+    assert p_fastdtw.print_alignment(path) == \
+        j_fastdtw.print_alignment(path) == "(1M)(2M1I)(1M)"
+
+
 CASES = {
     "config": case_config, "utils": case_utils, "cli": case_cli,
     "index.build": case_index_build, "index.sweep": case_index_sweep,
@@ -357,6 +462,7 @@ CASES = {
     "io.slow5": case_io_slow5, "io.fast5": case_io_fast5,
     "synth": case_synth, "mapping.chain": case_mapping_chain,
     "ops.cwt": case_ops_cwt, "native": case_native,
+    "evaluate": case_evaluate, "ops.fastdtw": case_ops_fastdtw,
 }
 
 
@@ -392,7 +498,7 @@ def test_every_copy_has_a_case():
     root = os.path.join(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))), "sigmap_tpu_torch")
     copies = {"config", "utils", "synth", "native", "mapping.chain",
-              "ops.cwt", "cli"}
+              "ops.cwt", "cli", "evaluate", "ops.fastdtw"}
     for sub in ("io", "index"):
         copies |= {f"{sub}.{f[:-3]}" for f in os.listdir(os.path.join(
             root, sub)) if f.endswith(".py") and f != "__init__.py"}

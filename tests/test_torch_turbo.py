@@ -9,12 +9,25 @@ workload of tests/test_turbo.py (B=32, S=256, K=16, RING=64, TILE=256).
   within RTOL, and ad (mean d^2 over the best chain, a sum of ~70 f32
   distances each rounded differently) within AD_RTOL; measured maxima on
   this workload are 8e-6 and 1.2e-4.
+* cross-batch overlap: the four batches give the same records, bit for bit
+  apart from mt:, with batch N+1 prepared on the prepare thread while
+  batch N maps (set on: these batches are below OVERLAP_MIN_BATCH) and
+  with each batch prepared inline; errors of either side reach the caller,
+  and close() ends the prepare thread.
 """
 
 import dataclasses
+import threading
+import time
+
+import numpy as np
+import pytest
 
 from sigmap_tpu_torch.mapping import turbo as port
+from _torch_gpu_util import quantize_reads
 from _torch_util import PARAMS, workload  # noqa: F401 - fixture
+
+PREPARE_THREAD = "sigmap-turbo-prepare"
 
 RTOL = 1e-5
 AD_RTOL = 3e-4
@@ -24,12 +37,37 @@ def _tags(rec):
     return dict(t.split(":", 1) for t in rec.tags.split("\t"))
 
 
-def test_port_streaming_map_matches_jax(workload):
+def _without_mt(records):
+    return [dataclasses.replace(r, tags="\t".join(
+        t for t in r.tags.split("\t") if not t.startswith("mt:")))
+        for r in records]
+
+
+def _overlapping_mapper(workload):
+    """A mapper of the workload with the overlap on (its read batch is
+    below OVERLAP_MIN_BATCH, so it is off by default)."""
+    cfg, idx, _, _ = workload
+    mapper = port.TurboMapper(idx, cfg, port.TurboParams(**PARAMS),
+                              device="cpu")
+    assert not mapper._overlap_batches
+    mapper._overlap_batches = True
+    return mapper
+
+
+@pytest.fixture(scope="module")
+def overlapped(workload):
+    """The port's records of the workload with the overlap on, and the
+    mapper, closed at the end of the module."""
+    mapper = _overlapping_mapper(workload)
+    yield mapper, mapper.streaming_map(workload[3])
+    mapper.close()
+
+
+def test_port_streaming_map_matches_jax(workload, overlapped):
     from sigmap_tpu.mapping.turbo import TurboMapper, TurboParams
 
     cfg, idx, reads, signals = workload
-    got = port.TurboMapper(idx, cfg, port.TurboParams(**PARAMS),
-                           device="cpu").streaming_map(signals)
+    got = overlapped[1]
     want = TurboMapper(idx, cfg, TurboParams(peaks_impl="scan", **PARAMS)
                        ).streaming_map(signals)
     assert len(got) == len(want) == len(signals)
@@ -59,3 +97,166 @@ def test_port_streaming_map_matches_jax(workload):
         + by_name[r.read_id].fragment_length > r.ref_start
     )
     assert correct >= len(reads) - 2
+
+
+def test_overlap_on_equals_off(workload, overlapped):
+    """Every field and tag but mt: equal, floats exactly, with batch N+1
+    prepared while batch N maps and with each batch prepared inline."""
+    cfg, _, _, signals = workload
+    assert -(-len(signals) // cfg.runtime.read_batch) == 4
+    mapper, on = overlapped
+    mapper._overlap_batches = False
+    try:
+        off = mapper.streaming_map(signals)
+    finally:
+        mapper._overlap_batches = True
+    assert len(on) == len(off) == len(signals)
+    assert _without_mt(on) == _without_mt(off)
+    assert all("mt:f:" in r.tags for r in on)
+
+
+@pytest.mark.parametrize("overlap", [True, False])
+def test_last_pass_stamps(workload, overlapped, overlap):
+    """streaming_map records where the pass spent its time on the host
+    clock: its start, then each of the four batches' rounds, then the wait
+    for the rescues, in that order and none overlapping."""
+    mapper, _ = overlapped
+    mapper._overlap_batches = overlap
+    try:
+        mapper.streaming_map(workload[3])
+    finally:
+        mapper._overlap_batches = True
+    p = mapper.last_pass
+    assert len(p["rounds"]) == 4
+    times = [p["start"], *(t for r in p["rounds"] for t in r),
+             *p["rescues"]]
+    assert times == sorted(times)
+
+
+def test_overlap_needs_a_large_read_batch(workload):
+    """The overlap is on by default from OVERLAP_MIN_BATCH reads a batch,
+    off below it, and a mapper may still set it either way."""
+    cfg, idx, _, _ = workload
+    for B, on in ((port.OVERLAP_MIN_BATCH - 1, False),
+                  (port.OVERLAP_MIN_BATCH, True)):
+        c = dataclasses.replace(cfg, runtime=dataclasses.replace(
+            cfg.runtime, read_batch=B))
+        mapper = port.TurboMapper(idx, c, port.TurboParams(**PARAMS),
+                                  device="cpu")
+        try:
+            assert mapper._overlap_batches is on
+        finally:
+            mapper.close()
+    assert port.TurboMapper._overlap_batches is True
+
+
+def _within(seconds, fn):
+    """fn() on a thread of its own; fails if it has not returned in time."""
+    out = {}
+
+    def run():
+        try:
+            out["value"] = fn()
+        except BaseException as e:  # noqa: BLE001 - handed to the test
+            out["error"] = e
+
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    t.join(seconds)
+    assert not t.is_alive(), f"still running after {seconds} s"
+    if "error" in out:
+        raise out["error"]
+    return out.get("value")
+
+
+def _prepare_threads(before):
+    return [t for t in threading.enumerate()
+            if t.name.startswith(PREPARE_THREAD) and t not in before
+            and t.is_alive()]
+
+
+@pytest.mark.parametrize("where", ["prepare", "round"])
+def test_overlap_errors_reach_the_caller(workload, monkeypatch, where):
+    """An exception in prepare_batch of batch 2, or in the rounds of batch
+    1, reaches the caller of streaming_map; for the rounds' error the next
+    batch's preparation has ended first.  The mapper then closes, leaving
+    no prepare thread.  The rounds are a stand-in here that records which
+    batches it was given (the overlap's order is what is tested); batch
+    2's preparation takes half a second longer, so that an error that did
+    not wait for it would arrive first."""
+    cfg, idx, _, signals = workload
+    B = cfg.runtime.read_batch
+    batch_of = {id(s): i // B for i, s in enumerate(signals)}
+    before = set(threading.enumerate())
+    mapper = _overlapping_mapper(workload)
+    prepare, prepared, mapped = mapper.prepare_batch, [], []
+
+    def prepare_batch(batch, stream=None):
+        i = batch_of[id(batch[0])]
+        if i == 2:
+            if where == "prepare":
+                raise RuntimeError("prepare failed")
+            time.sleep(0.5)
+        out = prepare(batch, stream)
+        prepared.append(i)
+        return out
+
+    def map_batch(batch, base, records, prep):
+        assert isinstance(prep, port.PreparedBatch)
+        mapped.append(base // B)
+        if where == "round" and base // B == 1:
+            raise ValueError("round failed")
+
+    monkeypatch.setattr(mapper, "prepare_batch", prepare_batch)
+    monkeypatch.setattr(mapper, "_map_batch", map_batch)
+    err = RuntimeError if where == "prepare" else ValueError
+    with pytest.raises(err, match=f"{where} failed"):
+        _within(120, lambda: mapper.streaming_map(signals))
+    if where == "prepare":
+        assert (prepared, mapped) == ([0, 1], [0, 1])
+    else:
+        assert (prepared, mapped) == ([0, 1, 2], [0, 1])
+    assert _prepare_threads(before)
+    _within(60, mapper.close)
+    assert _prepare_threads(before) == []
+
+
+def test_close_ends_the_prepare_thread(workload):
+    """close() after a batch was prepared on the prepare thread leaves no
+    live prepare thread."""
+    cfg, idx, _, signals = workload
+    before = set(threading.enumerate())
+    mapper = port.TurboMapper(idx, cfg, port.TurboParams(**PARAMS),
+                              device="cpu")
+    fut = mapper._prep_pool.submit(mapper.prepare_batch,
+                                   signals[: cfg.runtime.read_batch])
+    assert isinstance(fut.result(timeout=120), port.PreparedBatch)
+    assert len(_prepare_threads(before)) == 1
+    _within(60, mapper.close)
+    assert _prepare_threads(before) == []
+
+
+@pytest.mark.parametrize("NC", [1, 4])
+def test_quantize_matches_jax(workload, NC):
+    """The port's quantization (host staging, then the device half, here on
+    the CPU) gives the JAX package's host quantization exactly on every
+    branch, at a chunk count that cuts the long reads (NC=1: the fallback
+    affine spans only the first chunk) and at one that does not."""
+    from sigmap_tpu.mapping.turbo import quantize_batch
+
+    reads = quantize_reads(workload[3])
+    B, Cs = len(reads) + 3, 4000
+    want = quantize_batch(reads, B, NC, Cs, 30)
+    dac_scale = np.float32(reads[0].range / reads[0].digitisation)
+    fallback = [6, 7, 8, 12]          # noisy, nodig, offset, flat
+    assert (want[2][fallback] != dac_scale).all()
+    assert (want[2][:6] == dac_scale).all()
+    pa, L, scale, off, n_full = port.stage_batch(reads, B, NC, Cs, 30)
+    pa[L[:, None] <= np.arange(NC * Cs)[None, :]] = 7.0   # stale samples
+    q, qoff, qscale = port.quantize(pa, L, scale, off)
+    got = (q.numpy().reshape(B, NC, Cs), qoff.numpy(), qscale.numpy(),
+           n_full)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    assert got[1].dtype == got[2].dtype == np.float32
+    assert got[3].dtype == np.int32
