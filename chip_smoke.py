@@ -73,7 +73,26 @@
     and their glue) and the main stream's (the rounds: B3, B4 and theirs)
     ran at once, which must be above zero for batches 1 and 2 (the
     streams do not serialise); B1/B2 against B3/B4 alone is printed
-    beside it.
+    beside it;
+11. the sharded mapper (``parallel.turbo_shard.TurboShardMapper``) on
+    phase 4's index at the default TurboParams: (a) in this process, a
+    one-rank NCCL group, mesh (1, 1), on the first SHARD_READS reads at
+    that read batch, beside the single-device TurboMapper (both with phase
+    5's rescue oracle): an untimed pass each, then SHARD_PASSES warm passes
+    each in turns, reads/s, the merge's ms a round (CUDA events around
+    gather, sort and sum) and the rounds a batch; (b) two gloo ranks on
+    the one card as subprocesses (tests/_torch_shard_worker.py), meshes
+    (1, 2) and (2, 1), on the first SHARD_GLOO_READS reads at that read
+    batch, with each run's wall and reads/s (gloo stages through the host:
+    not a multi-GPU figure), SHARD_GLOO_PASSES passes a rank, the first
+    cold.  Every record equals the single-device mapper's apart from mt:,
+    but for reads whose capacity overflowed (row 7 of rb_i; at K=8 on this
+    index nearly every read), which are counted; both rescue as many
+    reads.  Every record also equals, apart from mt: and with no read
+    exempt, a one-process emulation of the run's mesh
+    (``threaded_shard_map``: one mapper a tile shard on a thread each,
+    the slots merged by ``merge_shard_matches`` at a barrier), and so do
+    the overflow and rescued reads; any rank's failure fails the phase.
 
 A line before the last is the per-kernel JSON record (each kernel's
 launches, max_abs_err, ms, plain_ms, its bound from the operations and bytes
@@ -90,6 +109,7 @@ import io
 import json
 import os
 import re
+import socket
 import statistics
 import subprocess
 import sys
@@ -123,6 +143,17 @@ OVERLAP_PASSES = 3     # warm passes with the overlap on, and as many off
 # of SWEEP_BATCHES read batches, the first the CLI's default
 SWEEP_BATCHES = (128, 512, 1024)
 SWEEP_READS = 2048
+# phase 11: the sharded mapper, (a) at world size 1 on phase 4's 2048
+# reads, (b) two gloo ranks on the one card, its reads cut to fit the
+# phase into ~240 s (the index and the params are not cut)
+SHARD_READS = 2048
+SHARD_PASSES = 3
+SHARD_GLOO_READS = 1024
+SHARD_GLOO_MESHES = ((1, 2), (2, 1))
+SHARD_GLOO_PASSES = 3    # a rank's passes, the first cold
+SHARD_WORKER = os.path.join(ROOT, "tests", "_torch_shard_worker.py")
+SHARD_WALL_S = 240       # a worker's wall limit
+SHARD_PG_TIMEOUT_S = 180  # its process group's timeout
 
 KERNELS = {
     "peaks": ("sigmap_tpu_torch/csrc/events.cu",
@@ -1130,13 +1161,16 @@ def stream_overlap(trace_path, side_names, main_names, n_batches):
     """How long two CUDA streams' device work ran at once, batch by batch,
     in a chrome trace.  The side stream is the one that ran a kernel whose
     name holds side_names[0] (B1), the main stream the one that ran one
-    holding main_names[0] (B3).  The side stream's intervals (kernels,
-    copies, memsets) split into n_batches bursts at their n_batches - 1
-    longest gaps (between two batches' heads the host quantizes the next
-    batch).  For each burst: its device time, the time it ran together with
-    any main-stream work, and the time its kernels named in side_names ran
-    together with main-stream kernels named in main_names, in ms, and its
-    number of side_names[0] kernels (one a batch)."""
+    holding main_names[0] (B3).  A batch's head runs one side_names[0]
+    kernel, so the side stream must hold n_batches of them; its intervals
+    (kernels, copies, memsets) split into n_batches bursts, one such kernel
+    each, at the longest gap between each two of them (the longest gaps of
+    the whole stream can both fall inside one batch's head, whose host
+    round trip and glue are not evenly spaced).  For each burst: its
+    device time, the time it ran together with any main-stream work, and
+    the time its kernels named in side_names ran together with main-stream
+    kernels named in main_names, in ms, and its number of side_names[0]
+    kernels."""
     with open(trace_path) as f:
         ev = [e for e in json.load(f)["traceEvents"]
               if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS]
@@ -1162,9 +1196,14 @@ def stream_overlap(trace_path, side_names, main_names, n_batches):
     side = sorted(spans(side_id))
     main_all = _union((a, b) for a, b, _ in spans(main_id))
     main_named = _union((a, b) for a, b, _ in spans(main_id, main_names))
-    gaps = sorted(range(1, len(side)), key=lambda i: side[i - 1][1]
-                  - side[i][0])[:n_batches - 1]
-    cuts = [0, *sorted(gaps), len(side)]
+    firsts = [i for i, (_, _, n) in enumerate(side) if side_names[0] in n]
+    if len(firsts) != n_batches:
+        raise AssertionError(
+            f"the side stream's bursts are not one a batch: {len(firsts)} "
+            f"{side_names[0]} for {n_batches} batches")
+    cuts = [0, *(max(range(f0 + 1, f1 + 1),
+                     key=lambda i: side[i][0] - side[i - 1][1])
+                 for f0, f1 in zip(firsts, firsts[1:])), len(side)]
     out = []
     for lo, hi in zip(cuts, cuts[1:]):
         burst = side[lo:hi]
@@ -1845,6 +1884,317 @@ def three_batch_phase(by_path, dev, work, genome_bases, oracle):
     log(f"phase 10: {time.perf_counter() - t_phase:.1f} s")
 
 
+def free_port():
+    """A free TCP port on localhost."""
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def run_shard_ranks(mesh, out_dir, args, wall_s=SHARD_WALL_S):
+    """One process a rank of a D x I mesh, each running
+    tests/_torch_shard_worker.py with `args` (its options but the rank,
+    world, coordinator, mesh and output) and a wall limit of wall_s.
+    Returns (what each rank wrote, wall s).  Fails if a rank fails or
+    outlives its limit; the other ranks are then killed."""
+    D, I = mesh
+    world = D * I
+    os.makedirs(out_dir, exist_ok=True)
+    coord = f"localhost:{free_port()}"
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, SHARD_WORKER, "--rank", str(r), "--world",
+         str(world), "--coordinator", coord, "--mesh", str(D), str(I),
+         "--out-dir", out_dir, *args],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=wall_s)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    wall = time.perf_counter() - t0
+    for r, (p, out) in enumerate(zip(procs, logs)):
+        assert p.returncode == 0, f"rank {r} failed ({p.returncode}):\n" \
+            + out[-4000:]
+    outs = []
+    for r in range(world):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            outs.append(json.load(f))
+    return outs, wall
+
+
+def shard_differences(label, want, want_pass, got, got_pass):
+    """Records of the sharded mapper (`got`, its ``last_pass``) against the
+    single-device mapper's on the same reads: every record equal apart
+    from mt:, but for reads whose capacity overflowed (row 7 of rb_i) in
+    either run; both runs rescue as many reads.  Prints and returns the
+    counts."""
+    a, b = records_without_mt(want), records_without_mt(got)
+    assert len(a) == len(b), f"{label}: {len(b)} records for {len(a)}"
+    differ = [i for i, (x, y) in enumerate(zip(a, b)) if x != y]
+    overflow = set(want_pass["overflow"]) | set(got_pass["overflow"])
+    counts = dict(reads=len(a), differ=len(differ),
+                  overflow_single=len(want_pass["overflow"]),
+                  overflow_sharded=len(got_pass["overflow"]),
+                  rescued_single=len(want_pass["rescued"]),
+                  rescued_sharded=len(got_pass["rescued"]))
+    log(f"{label}: records against the single-device mapper's: "
+        + json.dumps(counts))
+    assert set(differ) <= overflow, (
+        f"{label}: records of reads that did not overflow differ: "
+        f"{sorted(set(differ) - overflow)[:10]}")
+    assert counts["rescued_sharded"] == counts["rescued_single"], \
+        f"{label}: the sharded mapper rescued another number of reads"
+    return counts
+
+
+def shard_equal(label, want, want_pass, got, got_pass):
+    """The sharded mapper's records (`got`, its ``last_pass``) against
+    ``threaded_shard_map``'s for the same mesh: equal apart from mt:, no
+    read exempt, and the same overflow and rescued reads."""
+    a, b = records_without_mt(want), records_without_mt(got)
+    differ = [i for i, (x, y) in enumerate(zip(a, b)) if x != y]
+    log(f"{label}: records against the one-process emulation of its mesh: "
+        f"{len(b)} for {len(a)} reads, {len(differ)} differ")
+    assert len(a) == len(b) and not differ, (
+        f"{label}: records differ from the emulation's: {differ[:10]}")
+    for k in ("overflow", "rescued"):
+        assert sorted(want_pass[k]) == sorted(got_pass[k]), \
+            f"{label}: other {k} reads than the emulation's"
+
+
+def threaded_shard_map(index, cfg, params, n_index, signals, dev,
+                       oracle=None, wait_s=300):
+    """What the sharded mapper returns at any mesh (D, n_index), computed
+    in this process without a process group: n_index TurboMappers, one on
+    each tile shard of ``ShardedSweep``, run on as many threads in lock
+    step.  Each round every thread puts its match slots beside the
+    others', waits at a barrier, and merges them all with
+    ``merge_shard_matches`` (what the index group's all-gather and sum
+    hand it); only shard 0 rescues.  A read's record does not depend on
+    the reads beside it in a batch, so the data axis needs no emulation.
+    Returns shard 0's records and its ``last_pass``; a thread's fault
+    breaks the barrier (or its wait_s limit does) and is raised here."""
+    import threading
+
+    import torch
+
+    from sigmap_tpu_torch.mapping.turbo import TurboMapper
+    from sigmap_tpu_torch.parallel.turbo_shard import (
+        ShardedSweep, merge_shard_matches, tile_store_from_shard)
+
+    ss = ShardedSweep.build(index, cfg.mapping.search_radius, n_index,
+                            tile=params.TILE,
+                            cache_dir=cfg.runtime.sweep_cache_dir)
+    barrier = threading.Barrier(n_index, timeout=wait_s)
+    slots = [None] * n_index
+
+    class Shard(TurboMapper):
+        def __init__(self, i):
+            self.i = i
+            super().__init__(
+                index, cfg, dataclasses.replace(params, rescue=i == 0),
+                device=dev, oracle=oracle)
+            self._ovf_warned = i != 0
+            self._overlap_batches = False
+            self._merge_matches = self._merge
+
+        def _tile_store(self):
+            return tile_store_from_shard(ss, self.i, self.device)
+
+        def _merge(self, m_meta, m_d2, cnt, wrote):
+            slots[self.i] = (m_meta, m_d2, wrote, cnt)
+            barrier.wait()
+            am, ad, aw, c = (torch.stack(x) for x in zip(*slots))
+            out = merge_shard_matches(am, ad, aw, c.sum(0, dtype=c.dtype),
+                                      params.K)
+            barrier.wait()      # every shard has read the slots
+            return out
+
+    mappers = [Shard(i) for i in range(n_index)]
+    results = [None] * n_index
+
+    def run(i):
+        try:
+            results[i] = mappers[i].streaming_map(signals)
+        except BaseException as e:
+            results[i] = e
+            barrier.abort()
+
+    threads = [threading.Thread(target=run, args=(i,))
+               for i in range(n_index)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for m in mappers:
+        m.close()
+    faults = [r for r in results if isinstance(r, BaseException)]
+    if faults:
+        # the fault itself before the broken barriers it left behind
+        raise min(faults, key=lambda e: isinstance(
+            e, threading.BrokenBarrierError))
+    return results[0], mappers[0].last_pass
+
+
+def shard_phase(by_path, dev, work, reads, map_args, oracle):
+    """Phase 11: the sharded mapper on phase 4's index at the default
+    TurboParams.  (a) world size 1 over NCCL in this process against the
+    single-device mapper (both with phase 5's rescue oracle `oracle`), (b)
+    two gloo ranks on the one card as subprocesses.  Both share one sweep
+    cache, so the host's tile store is built once."""
+    import torch
+    import torch.distributed as dist
+
+    from sigmap_tpu_torch import LAUNCHES, reset_launches
+    from sigmap_tpu_torch.cli import build_parser, make_config
+    from sigmap_tpu_torch.index.build import SignalIndex
+    from sigmap_tpu_torch.io.signals import load_all_read_signals
+    from sigmap_tpu_torch.mapping import turbo as T
+    from sigmap_tpu_torch.parallel.multihost import initialize_distributed
+    from sigmap_tpu_torch.parallel.turbo_shard import (ShardMesh,
+                                                       TurboShardMapper)
+
+    t_phase = time.perf_counter()
+    a = build_parser().parse_args(map_args)
+    cache = os.path.join(work, "sweep_cache")
+    cfg = make_config(a)
+    cfg = dataclasses.replace(cfg, runtime=dataclasses.replace(
+        cfg.runtime, read_batch=SHARD_READS, sweep_cache_dir=cache))
+    index = SignalIndex.load(a.ref_index)
+    signals = load_all_read_signals(a.sig_dir, cfg.mapping.pa_lo,
+                                    cfg.mapping.pa_hi)[:SHARD_READS]
+    n = len(signals)
+    single = T.TurboMapper(index, cfg, device=dev, oracle=oracle)
+
+    # --- (a) world size 1, NCCL, in this process -------------------------
+    rank, world = initialize_distributed(
+        f"localhost:{free_port()}", 1, 0, backend="nccl",
+        timeout=SHARD_PG_TIMEOUT_S)
+    try:
+        mesh = ShardMesh.create(1, 1, dev)
+        sharded = TurboShardMapper(index, cfg, mesh, device=dev,
+                                   oracle=oracle)
+        merges = []                     # (start, end) events of each merge
+        merge = sharded._merge_matches
+
+        def timed_merge(*args):
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            out = merge(*args)
+            ev[1].record()
+            merges.append(ev)
+            return out
+
+        sharded._merge_matches = timed_merge
+
+        def one_pass(mapper):
+            t0 = time.perf_counter()
+            recs = mapper.streaming_map(signals)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0, recs, dict(mapper.last_pass)
+
+        _, want, want_pass = one_pass(single)          # untimed
+        reset_launches()
+        _, got, got_pass = one_pass(sharded)           # untimed
+        launches = by_path["shard"] = dict(LAUNCHES)
+        n_rounds = len(merges)
+        shard_differences("sharded (1, 1), NCCL", want, want_pass, got,
+                          got_pass)
+        shard_equal("sharded (1, 1), NCCL", *threaded_shard_map(
+            index, cfg, T.TurboParams(), 1, signals, dev, oracle), got,
+            got_pass)
+        walls = {"single": [], "sharded": []}
+        for i in range(SHARD_PASSES):
+            order = (("single", single), ("sharded", sharded))
+            for name, mapper in (order if i % 2 == 0 else order[::-1]):
+                merges.clear()
+                wall, recs, p = one_pass(mapper)
+                walls[name].append(wall)
+                assert records_without_mt(recs) == records_without_mt(
+                    want if name == "single" else got), \
+                    f"{name}: a warm pass's records differ from the first's"
+                if name == "sharded":
+                    merge_ms = [s.elapsed_time(e) for s, e in merges]
+        world_size = dist.get_world_size()
+    finally:
+        dist.destroy_process_group()
+    mapped, correct = score_hits(
+        {r.read_name: ("+" if r.direction == 1 else "-", r.fragment_start,
+                       r.fragment_start + r.fragment_length)
+         for r in got if r.is_mapped}, reads[:n])
+    n_batches = -(-n // SHARD_READS)
+    log(f"sharded (1, 1), NCCL, world size {world_size} (rank {rank}): "
+        f"{n} reads, read batch {SHARD_READS}; mapped {mapped}/{n}, correct "
+        f"{correct}/{n}; {n_rounds / n_batches:.1f} rounds a batch; "
+        f"launches {launches}")
+    for name, w in walls.items():
+        log(f"sharded (1, 1), NCCL: warm {name}: median "
+            f"{statistics.median(w):.3f} s = {n / statistics.median(w):.3f} "
+            "reads/s (" + ", ".join(f"{n / x:.3f}" for x in w) + ")")
+    log(f"sharded (1, 1), NCCL: merge (all-gather, sort, sum) a round, ms: "
+        + ", ".join(f"{x:.3f}" for x in merge_ms)
+        + f" (median {statistics.median(merge_ms):.3f}, of the last warm "
+        "pass)")
+    assert mapped >= 0.99 * n, f"sharded: only {mapped}/{n} reads mapped"
+    assert correct >= 0.99 * n, f"sharded: only {correct}/{n} correct"
+    for k in ("peaks", "compress_keep", "sweep", "chain_fused"):
+        assert launches[k] > 0, f"the sharded path did not launch {k}"
+    sharded.close()
+    del sharded
+
+    # --- (b) two gloo ranks on the one card, as subprocesses -------------
+    m = SHARD_GLOO_READS
+    cfg_b = dataclasses.replace(cfg, runtime=dataclasses.replace(
+        cfg.runtime, read_batch=m))
+    single_b = T.TurboMapper(index, cfg_b, device=dev, oracle=oracle)
+    want = single_b.streaming_map(signals[:m])
+    torch.cuda.synchronize()
+    want_pass = dict(single_b.last_pass)
+    single.close()
+    single_b.close()
+    sig = os.path.join(work, "signals_shard")
+    write_reads(sig, reads[:m])
+    from sigmap_tpu_torch.io.paf import PAFRecord
+
+    emulated = {}                 # n_index -> threaded_shard_map's
+    for mesh_b in SHARD_GLOO_MESHES:
+        outs, wall = run_shard_ranks(
+            mesh_b, os.path.join(work, f"shard_{mesh_b[0]}x{mesh_b[1]}"),
+            ["--backend", "gloo", "--device", "cuda", "--timeout",
+             str(SHARD_PG_TIMEOUT_S), "--index", a.ref_index, "--signals",
+             sig, "--read-batch", str(m), "--threads", "2",
+             "--sweep-cache", cache, "--passes", str(SHARD_GLOO_PASSES)])
+        recs = [[PAFRecord(**r) for r in o["records"]] for o in outs]
+        assert all(r == recs[0] for r in recs), \
+            f"mesh {mesh_b}: the ranks returned different records"
+        assert sum(o["n_rescued_here"] for o in outs if o["i"]) == 0, \
+            f"mesh {mesh_b}: a rank of index rank > 0 rescued reads"
+        label = f"sharded {mesh_b}, gloo on one card"
+        shard_differences(label, want, want_pass, recs[0], outs[0])
+        if mesh_b[1] not in emulated:
+            emulated[mesh_b[1]] = threaded_shard_map(
+                index, cfg_b, T.TurboParams(), mesh_b[1], signals[:m], dev,
+                oracle)
+        shard_equal(label, *emulated[mesh_b[1]], recs[0], outs[0])
+        passes = [max(x) for x in zip(*(o["map_s"] for o in outs))]
+        log(f"{label}: {m} reads, read batch {m}, the slowest rank's "
+            "streaming_map, pass by pass (the first cold, building the "
+            "rescue oracle): " + ", ".join(
+                f"{x:.3f} s = {m / x:.3f} reads/s" for x in passes)
+            + "; set-up " + ", ".join(f"{o['setup_s']:.1f}" for o in outs)
+            + f" s; the ranks' processes {wall:.1f} s in all; gloo stages "
+            "each collective through the host, so this is no multi-GPU "
+            "scaling figure")
+    log(f"phase 11: {time.perf_counter() - t_phase:.1f} s")
+
+
 def score_paf(path, reads):
     """(mapped, correct) against the simulation truth (bench.py accuracy)."""
     by_name = {}
@@ -1960,6 +2310,7 @@ def main():
     torch.cuda.empty_cache()
     gpu_test_phase()
     three_batch_phase(by_path, dev, work, int(args.genome_mb * 1e6), oracle)
+    shard_phase(by_path, dev, work, reads, map_args, oracle)
     del oracle
 
     print(json.dumps({"kernels": [

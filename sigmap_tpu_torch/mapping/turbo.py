@@ -238,8 +238,13 @@ def round_seeds(feats, counts_r, n_full, st: RoundState, p: TurboParams,
 
 def round_anchors(store: TileStore, feats, counts_r, n_full, st: RoundState,
                   p: TurboParams, step: int, radius: float, dim: int,
-                  m: MappingConfig) -> RoundAnchors:
-    """Seed windows, sweep search (B3) and the anchor layout of one round."""
+                  m: MappingConfig, merge_matches=None) -> RoundAnchors:
+    """Seed windows, sweep search (B3) and the anchor layout of one round.
+
+    merge_matches: None, or a callable (m_meta [Q, K], m_d2, cnt, wrote) ->
+    the same shapes that merges this shard's match slots with the other
+    index shards' (``parallel.turbo_shard``, turbo.py:165,201-202);
+    everything after the search, ``cnt`` included, sees its result."""
     B = feats.shape[0]
     S, K, RING = p.S, p.K, p.RING
     dev = feats.device
@@ -252,6 +257,8 @@ def round_anchors(store: TileStore, feats, counts_r, n_full, st: RoundState,
         dim=dim, block=p.block, radixes=store.radixes, span=store.span,
         cell_width=store.cell_width,
     )
+    if merge_matches is not None:
+        m_meta, m_d2, cnt, wrote = merge_matches(m_meta, m_d2, cnt, wrote)
     n_t, n_q, n_d, n_g = anchors_qpos_major(m_meta, m_d2, wrote, qpos,
                                             B, S, K)
     c_t, c_q, c_g = st.carry[:3]
@@ -269,17 +276,19 @@ def round_anchors(store: TileStore, feats, counts_r, n_full, st: RoundState,
 
 def turbo_round(store: TileStore, feats, counts_r, n_full, st: RoundState,
                 p: TurboParams, step: int, radius: float, dim: int,
-                chain_cfg: ChainingConfig, m: MappingConfig):
+                chain_cfg: ChainingConfig, m: MappingConfig,
+                merge_matches=None):
     """One streaming round (turbo.py:159-293) on the device of ``feats``.
 
-    feats/counts_r are this round's chunk-feature slice ([B, F] / [B]).
+    feats/counts_r are this round's chunk-feature slice ([B, F] / [B]);
+    merge_matches as in ``round_anchors``.
     Returns (new RoundState, counts [B] i32, host_sig [B+2] u8: done flags
     then the match and seed overflow flags)."""
     B = feats.shape[0]
     S, K = p.S, p.K
     i32 = torch.int32
     ra = round_anchors(store, feats, counts_r, n_full, st, p, step, radius,
-                       dim, m)
+                       dim, m, merge_matches)
     active, counts, has_f, cnt = ra.active, ra.counts, ra.has_f, ra.cnt
     match_ovf = (cnt > K).any()
     c_score, c_stt, c_stq, c_n, c_sumd = st.carry[3:]
@@ -478,11 +487,7 @@ class TurboMapper:
             index.derive_window_metadata()
         self.p = params if params is not None else TurboParams()
         self.p.check(self.device)
-        sw = SweepIndex.build_cached(
-            index, config.mapping.search_radius, tile=self.p.TILE,
-            cache_dir=config.runtime.sweep_cache_dir, materialize=True,
-        )
-        self.store = tile_store_from_sweep(sw, self.device)
+        self.store = self._tile_store()
         self._oracle = oracle
         self._oracle_lock = threading.Lock()
         self._oracle_kicked = False
@@ -501,6 +506,14 @@ class TurboMapper:
                       if self.device.type == "cuda" else None)
         if config.runtime.read_batch < OVERLAP_MIN_BATCH:
             self._overlap_batches = False
+
+    def _tile_store(self) -> TileStore:
+        """The tile store this mapper searches: the whole index's."""
+        sw = SweepIndex.build_cached(
+            self.index, self.cfg.mapping.search_radius, tile=self.p.TILE,
+            cache_dir=self.cfg.runtime.sweep_cache_dir, materialize=True,
+        )
+        return tile_store_from_sweep(sw, self.device)
 
     def _get_oracle(self):
         with self._oracle_lock:
@@ -529,6 +542,10 @@ class TurboMapper:
         if self._rescue_pool is not None:
             self._rescue_pool.shutdown(wait=True)
 
+    # merges each round's match slots across index shards (merge_matches
+    # of turbo_round); parallel.turbo_shard sets it, None on one device
+    _merge_matches = None
+
     # cross-batch overlap (turbo.py:645-651): batch N+1 is prepared while
     # batch N maps.  False prepares each batch inline on the caller's
     # stream, for a mapper whose processes must all dispatch their device
@@ -541,9 +558,11 @@ class TurboMapper:
         batches = [(base, signals[base: base + B])
                    for base in range(0, len(signals), B)]
         # where the pass spent its time, on the host clock (perf_counter
-        # s): its start, each batch's rounds and the wait for the rescues
+        # s): its start, each batch's rounds and the wait for the rescues;
+        # and the reads (indices into signals) whose capacity overflowed
+        # (row 7 of rb_i) and those the exact engine re-mapped
         self.last_pass = stamps = dict(start=time.perf_counter(), rounds=[],
-                                       rescues=None)
+                                       rescues=None, overflow=[], rescued=[])
 
         def map_one(base, batch, prep):
             t0 = time.perf_counter()
@@ -586,6 +605,7 @@ class TurboMapper:
                 if rec.is_mapped:
                     n_remap += 1
                 records[rid] = rec
+                self.last_pass["rescued"].append(rid)
             self.n_rescued += len(self._rescue_futs)
             self.n_rescued_mapped += n_remap
             print(
@@ -661,7 +681,7 @@ class TurboMapper:
             st, _counts, host_sig = turbo_round(
                 self.store, feats_all[:, rounds], counts_all[:, rounds],
                 n_full_d, st, self.p, m.step_size, m.search_radius,
-                self.index.dim, self.cfg.chain, m,
+                self.index.dim, self.cfg.chain, m, self._merge_matches,
             )
             h = host_sig.cpu().numpy()        # the round's one device read
             done_h, ovf_h = h[:B].astype(bool), h[B:].astype(bool)
@@ -689,6 +709,8 @@ class TurboMapper:
         chunk_idx = st.chunk_idx.cpu().numpy()
         stopped = st.stopped.cpu().numpy()
         offsets = st.offsets.cpu().numpy()
+        self.last_pass["overflow"] += [
+            base + int(i) for i in np.flatnonzero(rb_i[7, :len(batch)])]
         for i, s in enumerate(batch):
             self._emit(
                 records, base + i, s, rb_f[:, i], rb_i[:, i],

@@ -14,6 +14,7 @@ it runs where the card is:
 
 import dataclasses
 import io
+import json
 import os
 import sys
 
@@ -34,7 +35,8 @@ from sigmap_tpu_torch.config import ChainingConfig, EventDetectorConfig
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from chip_smoke import (  # noqa: E402
     ADV_WINDOW_ROWS, chain_adversarial, compress_adversarial,
-    peaks_adversarial, sdtw_adversarial,
+    peaks_adversarial, run_shard_ranks, sdtw_adversarial, shard_differences,
+    shard_equal, threaded_shard_map,
 )
 
 pytestmark = pytest.mark.gpu
@@ -315,6 +317,54 @@ def test_quantize_on_gpu_matches_cpu(driver_setup, cuda_device, NC):
     for g, w in zip(got, want):
         assert g.device.type == "cuda"
         assert torch.equal(g.cpu(), w)
+
+
+def test_shard_mapper_in_a_one_rank_nccl_group(driver_setup, cuda_device,
+                                              tmp_path):
+    """The sharded mapper at mesh (1, 1) in a one-rank NCCL group, in a
+    process of its own (tests/_torch_shard_worker.py), gives the
+    single-device mapper's records on the card apart from mt:, reads whose
+    capacity overflowed excepted, and rescues as many reads; and the
+    one-process emulation of the mesh's records (chip_smoke's
+    threaded_shard_map) apart from mt: with no read excepted."""
+    from sigmap_tpu_torch.config import RuntimeConfig, SigmapConfig
+    from sigmap_tpu_torch.io.paf import PAFRecord
+    from sigmap_tpu_torch.io.signals import load_all_read_signals
+    from sigmap_tpu_torch.io.slow5 import (COMP_ZLIB, SIGCOMP_NONE,
+                                           write_blow5)
+    from sigmap_tpu_torch.mapping import turbo as T
+
+    idx, reads, _ = driver_setup
+    prefix = str(tmp_path / "idx")
+    idx.save(prefix)
+    sig = tmp_path / "signals"
+    sig.mkdir()
+    write_blow5(str(sig / "reads.blow5"),
+                [dict(read_id=r.read_id, raw=r.raw,
+                      digitisation=r.digitisation, range=r.range,
+                      offset=r.offset) for r in reads],
+                rec_comp=COMP_ZLIB, sig_comp=SIGCOMP_NONE)
+    signals = load_all_read_signals(str(sig))
+    params = dict(S=256, K=16, RING=64, TILE=256)
+    mapper = T.TurboMapper(idx, SigmapConfig(runtime=RuntimeConfig(
+        read_batch=len(signals))), T.TurboParams(**params),
+        device=cuda_device)
+    try:
+        want = mapper.streaming_map(signals)
+    finally:
+        mapper.close()
+    outs, _ = run_shard_ranks(
+        (1, 1), str(tmp_path / "ranks"),
+        ["--backend", "nccl", "--device", "cuda", "--timeout", "120",
+         "--index", prefix, "--signals", str(sig), "--read-batch",
+         str(len(signals)), "--params", json.dumps(params)], wall_s=300)
+    got = [PAFRecord(**r) for r in outs[0]["records"]]
+    assert [r.read_id for r in got] == list(range(len(signals)))
+    shard_differences("mesh (1, 1), NCCL", want, mapper.last_pass, got,
+                      outs[0])
+    shard_equal("mesh (1, 1), NCCL", *threaded_shard_map(
+        idx, mapper.cfg, T.TurboParams(**params), 1, signals, cuda_device),
+        got, outs[0])
 
 
 def test_align_modes_on_gpu_match_cpu(debug_work, cuda_device):

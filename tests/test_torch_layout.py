@@ -29,7 +29,9 @@ MODULES = [
     "sigmap_tpu_torch.io.fast5", "sigmap_tpu_torch.index.build",
     "sigmap_tpu_torch.index.sweep", "sigmap_tpu_torch.mapping.chain",
     "sigmap_tpu_torch.ops.cwt", "sigmap_tpu_torch.evaluate",
-    "sigmap_tpu_torch.ops.fastdtw",
+    "sigmap_tpu_torch.ops.fastdtw", "sigmap_tpu_torch.parallel",
+    "sigmap_tpu_torch.parallel.turbo_shard",
+    "sigmap_tpu_torch.parallel.multihost",
 ]
 
 BLOCKER = """
@@ -49,9 +51,10 @@ print("ok", len(sys.argv) - 1)
 """
 
 
-# tests/test_torch_gpu.py runs where the GPU is and JAX is not: it and its
+# tests/test_torch_gpu.py runs where the GPU is and JAX is not, and so does
+# the sharded mapper's worker (chip_smoke.py phase 11): they and the
 # fixture module import nothing of the JAX package either
-GPU_TESTS = ["test_torch_gpu", "_torch_gpu_util"]
+GPU_TESTS = ["test_torch_gpu", "_torch_gpu_util", "_torch_shard_worker"]
 
 
 def _run(code, *args):
@@ -253,9 +256,12 @@ def test_chip_smoke_host_gaps_names_the_ops_in_each_gap(tmp_path):
     assert gaps[2]["host_ops"] == [] and gaps[2]["host_op_share"] == 0.0
 
 
-def _stream_trace(tmp_path, side_stream=3):
+def _stream_trace(tmp_path, side_stream=3, close_heads=False):
     """A chrome trace of three batches: the side stream's heads (a copy,
-    B1, B2, glue) against the main stream's rounds (B3, B4, glue)."""
+    B1, B2, glue) against the main stream's rounds (B3, B4, glue).  With
+    close_heads, batch 1's head follows batch 0's at once and its glue
+    comes long after its B2, so the stream's two longest gaps both lie
+    between batch 1's B1 and batch 2's."""
     import json
 
     def k(name, ts, end, stream, cat="kernel"):
@@ -274,10 +280,14 @@ def _stream_trace(tmp_path, side_stream=3):
           k("peaks_kernel(float const*)", -30, -20, s),
           k("compress_keep_kernel(float const*)", -15, -10, s),
           # batch 1: during the first round's B3
-          k("Memcpy HtoD", 50, 60, s, "gpu_memcpy"),
-          k("peaks_kernel(float const*)", 70, 75, s),
-          k("compress_keep_kernel(float const*)", 80, 82, s),
-          k("scatter_kernel", 85, 88, s),
+          *([k("Memcpy HtoD", -4, 0, s, "gpu_memcpy"),
+             k("peaks_kernel(float const*)", 5, 10, s),
+             k("compress_keep_kernel(float const*)", 12, 14, s),
+             k("scatter_kernel", 200, 205, s)] if close_heads else
+            [k("Memcpy HtoD", 50, 60, s, "gpu_memcpy"),
+             k("peaks_kernel(float const*)", 70, 75, s),
+             k("compress_keep_kernel(float const*)", 80, 82, s),
+             k("scatter_kernel", 85, 88, s)]),
           # batch 2: B1 under B3, B2 under a glue kernel
           k("Memcpy HtoD", 380, 390, s, "gpu_memcpy"),
           k("peaks_kernel(float const*)", 395, 398, s),
@@ -289,19 +299,25 @@ def _stream_trace(tmp_path, side_stream=3):
     return str(path)
 
 
-def test_chip_smoke_stream_overlap_per_batch(tmp_path):
-    """Phase 10's measure: the side stream's bursts, one a batch, and the
+@pytest.mark.parametrize("close_heads,want", [
+    (False, [(0.025, 0.0, 0.0), (0.020, 0.020, 0.007),
+             (0.023, 0.023, 0.003)]),
+    # the cut between batches 1 and 2 falls at the longest gap between
+    # their B1s, before batch 1's late glue
+    (True, [(0.025, 0.0, 0.0), (0.011, 0.007, 0.007),
+            (0.028, 0.023, 0.003)]),
+])
+def test_chip_smoke_stream_overlap_per_batch(tmp_path, close_heads, want):
+    """Phase 10's measure: the side stream's bursts, one B1 each, and the
     time each ran at once with the main stream's work, and its B1/B2 with
     B3/B4 alone."""
     sys.path.insert(0, ROOT)
     from chip_smoke import stream_overlap
 
-    got = stream_overlap(_stream_trace(tmp_path),
+    got = stream_overlap(_stream_trace(tmp_path, close_heads=close_heads),
                          ("peaks_kernel", "compress_keep_kernel"),
                          ("sweep_kernel", "chain_fused_kernel"), 3)
     assert (got["side_stream"], got["main_stream"]) == (3, 7)
-    want = [(0.025, 0.0, 0.0), (0.020, 0.020, 0.007),
-            (0.023, 0.023, 0.003)]
     for b, (side, both, named) in zip(got["per_batch"], want):
         assert b["side_ms"] == pytest.approx(side)
         assert b["overlap_ms"] == pytest.approx(both)
@@ -317,6 +333,17 @@ def test_chip_smoke_stream_overlap_fails_on_one_stream(tmp_path):
     with pytest.raises(AssertionError, match="overlap is not there"):
         stream_overlap(_stream_trace(tmp_path, side_stream=7),
                        ("peaks_kernel",), ("sweep_kernel",), 3)
+
+
+def test_chip_smoke_stream_overlap_needs_one_b1_a_batch(tmp_path):
+    """A side stream that ran another number of B1 kernels than there were
+    batches fails the measure."""
+    sys.path.insert(0, ROOT)
+    from chip_smoke import stream_overlap
+
+    with pytest.raises(AssertionError, match="not one a batch: 3 peaks"):
+        stream_overlap(_stream_trace(tmp_path), ("peaks_kernel",),
+                       ("sweep_kernel",), 4)
 
 
 @pytest.mark.parametrize("kb", [1, 4, 8])

@@ -28,6 +28,7 @@ import sigmap_tpu.mapping.chain as j_chain
 import sigmap_tpu.native as j_native
 import sigmap_tpu.ops.cwt as j_cwt
 import sigmap_tpu.ops.fastdtw as j_fastdtw
+import sigmap_tpu.parallel.multihost as j_multihost
 import sigmap_tpu.synth as j_synth
 import sigmap_tpu.utils as j_utils
 import sigmap_tpu_torch.cli as p_cli
@@ -45,6 +46,7 @@ import sigmap_tpu_torch.mapping.chain as p_chain
 import sigmap_tpu_torch.native as p_native
 import sigmap_tpu_torch.ops.cwt as p_cwt
 import sigmap_tpu_torch.ops.fastdtw as p_fastdtw
+import sigmap_tpu_torch.parallel.multihost as p_multihost
 import sigmap_tpu_torch.synth as p_synth
 import sigmap_tpu_torch.utils as p_utils
 from _torch_util import jax_native_from_source  # noqa: F401 - fixture
@@ -454,6 +456,28 @@ def case_ops_fastdtw(data, tmp):
         j_fastdtw.print_alignment(path) == "(1M)(2M1I)(1M)"
 
 
+def case_parallel_multihost(data, tmp):
+    """shard_files_for_host over unsorted names at 1-3 processes, and
+    merge_host_paf of three partials given out of rank order (one empty):
+    the same shares, the same merged file and line count."""
+    names = [f"d{i % 2}/r{i}.blow5" for i in (5, 0, 3, 6, 1, 4, 2)]
+    for n in (1, 2, 3):
+        for pid in range(n):
+            assert p_multihost.shard_files_for_host(names, pid, n) == \
+                j_multihost.shard_files_for_host(names, pid, n)
+    parts = []
+    for rank, lines in ((2, ["c\t1\n"]), (0, ["a\t1\n", "a\t2\n"]),
+                        (1, [])):
+        parts.append(str(tmp / f"part_{rank:03d}.paf"))
+        with open(parts[-1], "w") as f:
+            f.writelines(lines)
+    out = []
+    for pkg in (j_multihost, p_multihost):
+        path = tmp / f"merged_{pkg.__name__.split('.')[0]}.paf"
+        out.append((pkg.merge_host_paf(parts, str(path)), path.read_text()))
+    assert out[0] == out[1] == (3, "a\t1\na\t2\nc\t1\n")
+
+
 CASES = {
     "config": case_config, "utils": case_utils, "cli": case_cli,
     "index.build": case_index_build, "index.sweep": case_index_sweep,
@@ -463,6 +487,7 @@ CASES = {
     "synth": case_synth, "mapping.chain": case_mapping_chain,
     "ops.cwt": case_ops_cwt, "native": case_native,
     "evaluate": case_evaluate, "ops.fastdtw": case_ops_fastdtw,
+    "parallel.multihost": case_parallel_multihost,
 }
 
 
@@ -498,7 +523,8 @@ def test_every_copy_has_a_case():
     root = os.path.join(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))), "sigmap_tpu_torch")
     copies = {"config", "utils", "synth", "native", "mapping.chain",
-              "ops.cwt", "cli", "evaluate", "ops.fastdtw"}
+              "ops.cwt", "cli", "evaluate", "ops.fastdtw",
+              "parallel.multihost"}
     for sub in ("io", "index"):
         copies |= {f"{sub}.{f[:-3]}" for f in os.listdir(os.path.join(
             root, sub)) if f.endswith(".py") and f != "__init__.py"}
