@@ -21,16 +21,24 @@
    the kernels' tile sizes; B2's steps at delta and one ulp either side);
 4. drives the main path through the CLI (``-i`` then ``-m``) on a synthetic
    genome with BLOW5 (zlib) reads, scores the PAF against the simulation
-   truth, and checks that every kernel of the path was launched;
-5. maps the reads again with the rescue oracle built (warm): the sweep's
-   tile steps and pair-evaluations per round, split between blocks made
-   only of SEED_PAD seeds and the rest, and each round's B3 time with the
-   blocks longest first (the main path) and in cell-key order; reads/s,
-   and under torch.profiler
-   the device's busy time (union of its kernel, memcpy and memset
-   intervals) and idle share, and the gaps between device intervals (the
-   ten longest, the stretches before the first and after the last interval
-   among them) with the host ops that ran in each;
+   truth, checks that every kernel of the path was launched, and prints
+   each CUDA graph of the mapper (``mapping/graphs.py``: the round graph,
+   the head graph of each chunk bucket) with its replays, capture ms and
+   pool MiB; a round graph must have replayed;
+5. maps the reads again with the rescue oracle built (warm): on an eager
+   pass the sweep's tile steps and pair-evaluations per round, split
+   between blocks made only of SEED_PAD seeds and the rest, and each
+   round's B3 time with the blocks longest first (the main path) and in
+   cell-key order; then OVERLAP_PASSES passes with the graphs on and as
+   many off in turns after an untimed pass, records equal to the eager
+   pass's apart from mt:, each with its reads/s, each batch's round loop
+   and the host ms a round takes to send its work and to get its host
+   signal back; each graph's captures, replays, capture ms and pool MiB;
+   and one pass each way under torch.profiler: the device's busy time
+   (union of its kernel, memcpy and memset intervals) and idle share, B3
+   and B4 once a round in the trace, and the gaps between device intervals
+   (the ten longest, the stretches before the first and after the last
+   interval among them) with the host ops that ran in each;
 6. the debug modes and B5: B5 == plain at bench.py's DTW shape, on
    ``sdtw_adversarial`` (band and pass edges, ragged, empty and tied pairs)
    and on the debug path's own full-width inputs (a 48,502-base reference,
@@ -51,7 +59,7 @@
    default windows (three blocks an SM) and in the largest; then
    ``streaming_map``
    of the first WIDE_READS reads, scored like phase 4, every turbo kernel
-   launched;
+   launched, the round graph replayed (its replays, capture ms, pool MiB);
 9. tests/test_torch_gpu.py under pytest (``-m gpu --noconftest``): every
    case must pass, none skip; its summary line is printed;
 10. the round-5 workload (BENCH_r05.json): THREE_BATCH_READS reads of phase
@@ -59,8 +67,9 @@
     threads (bench.py:240-241), on phase 4's index: ``-m`` through the CLI,
     scored like phase 4, B1-B4 launched; then on one mapper with phase 5's
     rescue oracle, OVERLAP_PASSES warm passes with the cross-batch overlap
-    on and as many with it off, alternated after an untimed pass, their
-    records equal apart from mt:, with each pass's head (batch 0's
+    on and as many with it off, alternated after an untimed pass, all with
+    the graphs, their records equal apart from mt: to an eager pass's
+    (graphs off), with each pass's head (batch 0's
     preparation), its waits between batches, its rounds and its rescue
     tail (``TurboMapper.last_pass``); the same at -t 1 on the first
     SWEEP_READS reads at each of SWEEP_BATCHES read batches; on the
@@ -74,7 +83,8 @@
     ran at once, which must be above zero for batches 1 and 2 (the
     streams do not serialise); B1/B2 against B3/B4 alone is printed
     beside it;
-11. the sharded mapper (``parallel.turbo_shard.TurboShardMapper``) on
+11. the sharded mapper (``parallel.turbo_shard.TurboShardMapper``, a round
+    two graphs around its eager merge; each graph's replays printed) on
     phase 4's index at the default TurboParams: (a) in this process, a
     one-rank NCCL group, mesh (1, 1), on the first SHARD_READS reads at
     that read batch, beside the single-device TurboMapper (both with phase
@@ -1261,7 +1271,9 @@ def sweep_round_stats(rounds, inputs):
 
 
 def profile_warm(mapper, signals, work):
-    """Phase 5: the reads mapped again once the rescue oracle is built."""
+    """Phase 5: the reads mapped again once the rescue oracle is built: the
+    sweep's statistics on an eager pass, then warm passes with the graphs
+    on and off in turns, and one pass of each way under the profiler."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1272,9 +1284,10 @@ def profile_warm(mapper, signals, work):
     mapper._get_oracle()
     oracle_s = time.perf_counter() - t0
     rounds, inputs = [], []
-    with sweep_round_stats(rounds, inputs):
-        mapper.streaming_map(signals)              # warm-up
-    torch.cuda.synchronize()
+    # the statistics wrap prepare_round, which only an eager round calls
+    # (a replay runs the captured kernels without Python)
+    eager = eager_pass(mapper, signals, lambda: sweep_round_stats(
+        rounds, inputs))
     tot = [0, 0, 0.0, 0.0]
     for i, ((G, G_pad, steps, steps_pad, tile_x_block),
             (qr_s, bm, perm, kw)) in enumerate(zip(rounds, inputs)):
@@ -1298,38 +1311,92 @@ def profile_warm(mapper, signals, work):
         f"B3 {tot[2]:.3f} ms longest first, {tot[3]:.3f} ms in cell-key "
         f"order")
     del inputs
-    warm = []                # three passes: the spread of a host-bound time
-    for _ in range(3):
-        t0 = time.perf_counter()
-        mapper.streaming_map(signals)
-        torch.cuda.synchronize()
-        warm.append(time.perf_counter() - t0)
-    warm_s = statistics.median(warm)
+    # three passes each way: the spread of a host-bound time; the untimed
+    # pass captures the graphs
+    walls = warm_set(mapper, signals, "phase 5", attr="_graphs", want=eager)
+    stats = graph_log("warm", mapper)
+    assert all(s["replays"] > 0 for s in stats), \
+        "warm: a graph of the mapper was never replayed"
+    n = len(signals)
+    warm_s = statistics.median(walls[True])
+    log(f"warm: rescue oracle build {oracle_s:.3f} s; streaming_map of {n} "
+        f"reads with the graphs {warm_s:.3f} s = {n / warm_s:.3f} reads/s "
+        f"(the median of three passes: "
+        + ", ".join(f"{n / w:.3f}" for w in walls[True]) + ")")
     # the pass ends by waiting for the reads that the host's exact engine
     # re-maps (no torch op runs meanwhile): the mapper times that wait, so
     # that the stretch after the last device interval has a name
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        mapper.streaming_map(signals)
+    for graphs in (True, False):
+        mapper._graphs = graphs
+        way = "graphs" if graphs else "eager"
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            mapper.streaming_map(signals)
+            torch.cuda.synchronize()
+            prof_s = time.perf_counter() - t0
+        drain_ms = pass_waits(mapper.last_pass)["rescue_tail_ms"]
+        n_rounds = round_host_ms(mapper.last_pass)["rounds"]
+        trace = os.path.join(work, f"warm_trace_{way}.json")
+        prof.export_chrome_trace(trace)
+        busy_ms, by_name = device_busy(trace)
+        log(f"warm profile ({way}): wall {prof_s * 1000:.3f} ms, device "
+            f"busy {busy_ms:.3f} ms, idle share "
+            f"{1 - busy_ms / (prof_s * 1000):.4f}; waiting for the rescued "
+            f"reads at the end of the pass {drain_ms:.3f} ms; {n_rounds} "
+            "rounds; rounds on the host "
+            + json.dumps(round_host_ms(mapper.last_pass)))
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+        for name, (ms, cnt) in top:
+            log(f"  device {ms:10.3f} ms {cnt:6d}x  {name[:70]}")
+        # the trace holds the kernels a graph launched, one B3 and one B4 a
+        # round
+        for kernel in ("sweep_kernel", "chain_fused_kernel"):
+            cnt = sum(c for name, (_, c) in by_name.items() if kernel in name)
+            assert cnt == n_rounds, (
+                f"warm profile ({way}): {cnt} {kernel} in the trace for "
+                f"{n_rounds} rounds")
+        log_gaps(f"warm profile ({way})", trace)
+    mapper._graphs = True
+
+
+def eager_pass(mapper, signals, context=contextlib.nullcontext):
+    """The mapper's records of `signals` with its rounds and heads run op
+    by op (``_graphs`` False), inside ``context()``."""
+    import torch
+
+    graphs = mapper._graphs
+    mapper._graphs = False
+    try:
+        with context():
+            recs = mapper.streaming_map(signals)
         torch.cuda.synchronize()
-        prof_s = time.perf_counter() - t0
-    drain_ms = pass_waits(mapper.last_pass)["rescue_tail_ms"]
-    trace = os.path.join(work, "warm_trace.json")
-    prof.export_chrome_trace(trace)
-    busy_ms, by_name = device_busy(trace)
-    n = len(signals)
-    log(f"warm: rescue oracle build {oracle_s:.3f} s; streaming_map of {n} "
-        f"reads {warm_s:.3f} s = {n / warm_s:.3f} reads/s (the median of "
-        f"three passes: " + ", ".join(f"{n / w:.3f}" for w in warm) + ")")
-    log(f"warm profile: wall {prof_s * 1000:.3f} ms, device busy "
-        f"{busy_ms:.3f} ms, idle share {1 - busy_ms / (prof_s * 1000):.4f}")
-    log(f"warm profile: waiting for the rescued reads at the end of the "
-        f"pass {drain_ms:.3f} ms")
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
-    for name, (ms, cnt) in top:
-        log(f"  device {ms:10.3f} ms {cnt:6d}x  {name[:70]}")
-    log_gaps("warm profile", trace)
+    finally:
+        mapper._graphs = graphs
+    return recs
+
+
+def graph_log(label, mapper):
+    """Print each of the mapper's graphs (its captures, their host ms, its
+    replays, its pool's MiB, the launches a replay adds) and return them
+    (``TurboMapper.graph_stats``)."""
+    stats = mapper.graph_stats()
+    for s in stats:
+        log(f"{label}: graph {s['graph']}: {s['captures']} capture(s) in "
+            f"{s['capture_ms']:.3f} ms, {s['replays']} replays, pool "
+            f"{s['pool_mib']:.1f} MiB, launches a replay "
+            + json.dumps(s["launches_a_replay"]))
+    return stats
+
+
+def round_host_ms(stamps):
+    """A pass's rounds on the host clock (``last_pass["round_host"]``: each
+    round's seconds until its device work was sent and until its host
+    signal came back) -> the rounds and the medians in ms."""
+    rh = stamps["round_host"]
+    return dict(rounds=len(rh),
+                sent_ms=statistics.median(a for a, _ in rh) * 1000,
+                back_ms=statistics.median(b for _, b in rh) * 1000)
 
 
 def log_gaps(label, trace):
@@ -1667,7 +1734,10 @@ def wide_phase(records, by_path, dev, work, reads, map_args, oracle):
         f"{n / wall:.3f} reads/s; mapped {mapped}/{n}, correct {correct}/{n};"
         f" rescued {mapper.n_rescued} ({mapper.n_rescued_mapped} mapped); "
         f"launches {launches}")
+    stats = graph_log("wide turbo", mapper)
     mapper.close()
+    assert any(s["graph"].startswith("round") and s["replays"] > 0
+               for s in stats), "wide turbo: the round graph never replayed"
     assert mapped >= 0.99 * n, f"wide: only {mapped}/{n} reads mapped"
     assert correct >= 0.99 * n, f"wide: only {correct}/{n} reads correct"
     for k in ("peaks", "compress_keep", "sweep", "chain_fused"):
@@ -1714,48 +1784,57 @@ def pass_waits(stamps):
         rescue_tail_ms=(stamps["rescues"][1] - stamps["rescues"][0]) * 1000)
 
 
-def warm_set(mapper, signals, label, gate=False):
-    """One untimed pass, then OVERLAP_PASSES warm passes with the
-    cross-batch overlap on and as many off, in turns (on, off, off, on,
-    ...), each with its wall, reads/s and waits.  Fails if a pass's records
-    differ from the first pass's apart from mt:, or, with ``gate``, if
-    every pass of the mapper's default way was slower than every pass of
-    the other way."""
+def warm_set(mapper, signals, label, gate=False, attr="_overlap_batches",
+             want=None):
+    """One untimed pass, then OVERLAP_PASSES warm passes with the mapper's
+    switch ``attr`` (the cross-batch overlap, or the graphs) on and as many
+    off, in turns (on, off, off, on, ...), each with its wall, reads/s,
+    waits and its rounds' host time.  Fails if a pass's records differ
+    apart from mt: from ``want`` (default: the first pass's), or, with
+    ``gate``, if every pass of the mapper's default way was slower than
+    every pass of the other way.  Returns the walls {True: [s, ...],
+    False: [...]}."""
     import torch
 
     n = len(signals)
-    default = mapper._overlap_batches
+    what = {"_overlap_batches": "overlap", "_graphs": "graphs"}[attr]
+    default = getattr(mapper, attr)
 
-    def one_pass(overlap):
-        mapper._overlap_batches = overlap
+    def one_pass(on):
+        setattr(mapper, attr, on)
         t0 = time.perf_counter()
         recs = mapper.streaming_map(signals)
         torch.cuda.synchronize()
         return time.perf_counter() - t0, recs
 
     _, first = one_pass(default)                    # untimed
-    want = records_without_mt(first)
+    want = records_without_mt(first if want is None else want)
+    assert records_without_mt(first) == want, \
+        f"warm ({label}): the untimed pass's records differ"
     walls = {True: [], False: []}
     for i in range(OVERLAP_PASSES):
-        for overlap in ((True, False) if i % 2 == 0 else (False, True)):
-            wall, recs = one_pass(overlap)
-            walls[overlap].append(wall)
+        for on in ((True, False) if i % 2 == 0 else (False, True)):
+            wall, recs = one_pass(on)
+            walls[on].append(wall)
             same = records_without_mt(recs) == want
-            log(f"warm ({label}), overlap {'on ' if overlap else 'off'}: "
-                f"{wall:.3f} s = {n / wall:.3f} reads/s; records equal to "
-                f"the first pass's apart from mt: {same}; "
-                + json.dumps(pass_waits(mapper.last_pass)))
-            assert same, "records differ between overlap on and off"
-    mapper._overlap_batches = default
-    for overlap in (True, False):
-        w = walls[overlap]
-        log(f"warm ({label}), overlap {'on' if overlap else 'off'}: median "
+            log(f"warm ({label}), {what} {'on ' if on else 'off'}: "
+                f"{wall:.3f} s = {n / wall:.3f} reads/s; records equal "
+                f"apart from mt: {same}; "
+                + json.dumps(pass_waits(mapper.last_pass))
+                + "; rounds on the host "
+                + json.dumps(round_host_ms(mapper.last_pass)))
+            assert same, f"records differ with the {what} on and off"
+    setattr(mapper, attr, default)
+    for on in (True, False):
+        w = walls[on]
+        log(f"warm ({label}), {what} {'on' if on else 'off'}: median "
             f"{statistics.median(w):.3f} s = {n / statistics.median(w):.3f} "
             "reads/s (" + ", ".join(f"{n / x:.3f}" for x in w) + ")")
     assert not gate or min(walls[default]) <= max(walls[not default]), (
-        f"warm ({label}): every pass of the default (overlap "
+        f"warm ({label}): every pass of the default ({what} "
         f"{'on' if default else 'off'}) was slower than every pass of the "
         "other way")
+    return walls
 
 
 def three_batch_phase(by_path, dev, work, genome_bases, oracle):
@@ -1813,15 +1892,21 @@ def three_batch_phase(by_path, dev, work, genome_bases, oracle):
     mapper = T.TurboMapper(index, cfg, device=dev, oracle=oracle)
     signals = load_all_read_signals(a.sig_dir, cfg.mapping.pa_lo,
                                     cfg.mapping.pa_hi)
+    # every timed pass replays the graphs and is held to an eager pass
     warm_set(mapper, signals, f"-t {HOST_THREADS}, read batch "
-             f"{THREE_BATCH_B}", gate=True)
+             f"{THREE_BATCH_B}", gate=True,
+             want=eager_pass(mapper, signals))
+    graph_log("three batches", mapper)
     # -t 1 at smaller read batches, the CLI's default first
     for B in SWEEP_BATCHES:
         small = dataclasses.replace(cfg, runtime=dataclasses.replace(
             cfg.runtime, read_batch=B, num_threads=1))
         small_mapper = T.TurboMapper(index, small, device=dev, oracle=oracle)
-        warm_set(small_mapper, signals[:SWEEP_READS],
-                 f"-t 1, read batch {B}", gate=B == SWEEP_BATCHES[0])
+        label = f"-t 1, read batch {B}"
+        warm_set(small_mapper, signals[:SWEEP_READS], label,
+                 gate=B == SWEEP_BATCHES[0],
+                 want=eager_pass(small_mapper, signals[:SWEEP_READS]))
+        graph_log(label, small_mapper)
         small_mapper.close()
 
     # the head alone (batch 0; the rounds are not running): the host's
@@ -2002,6 +2087,7 @@ def threaded_shard_map(index, cfg, params, n_index, signals, dev,
                 device=dev, oracle=oracle)
             self._ovf_warned = i != 0
             self._overlap_batches = False
+            self._graphs = False
             self._merge_matches = self._merge
 
         def _tile_store(self):
@@ -2146,6 +2232,12 @@ def shard_phase(by_path, dev, work, reads, map_args, oracle):
     assert correct >= 0.99 * n, f"sharded: only {correct}/{n} correct"
     for k in ("peaks", "compress_keep", "sweep", "chain_fused"):
         assert launches[k] > 0, f"the sharded path did not launch {k}"
+    graph_log("sharded (1, 1), NCCL: single-device", single)
+    stats = graph_log("sharded (1, 1), NCCL", sharded)
+    assert [s["captures"] for s in stats if s["graph"].startswith(
+        "round")] == [2], "the sharded round is not two graphs"
+    assert all(s["replays"] > 0 for s in stats), \
+        "sharded (1, 1): a graph was never replayed"
     sharded.close()
     del sharded
 
@@ -2290,11 +2382,19 @@ def main():
         f"device memory peak "
         f"{(torch.cuda.max_memory_allocated() - resident) / 2**20:.0f} MiB "
         f"(beyond phase 3's resident mapper); launches {launches}")
+    for g in run["graphs"]:
+        log(f"main path: graph {g['graph']}: {g['captures']} capture(s) in "
+            f"{g['capture_ms']:.3f} ms, {g['replays']} replays, pool "
+            f"{g['pool_mib']:.1f} MiB")
     assert mapped >= 0.99 * n, f"only {mapped}/{n} reads mapped"
     assert correct >= 0.99 * n, f"only {correct}/{n} reads mapped correctly"
     for name in ("peaks", "compress_keep", "sweep", "chain_fused"):
         assert launches[name] > 0, \
             f"kernel {name} was not launched on the main path"
+    # one batch: its head runs eagerly and is captured; its rounds after
+    # the first replay the round graph
+    assert any(g["graph"].startswith("round") and g["replays"] > 0
+               for g in run["graphs"]), "the main path replayed no round"
 
     profile_warm(mapper, signals, work)
     mapper.close()

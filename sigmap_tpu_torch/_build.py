@@ -13,11 +13,15 @@ hash of their sources or flags changes:
 A build failure raises; nothing falls back.
 
 ``LAUNCHES`` counts kernel launches by name.  Each kernel wrapper adds one
-where it launches its kernel, and nowhere else.
+where it launches its kernel (``count_launch``), and nowhere else.  A
+launch made while its thread captures a CUDA graph does not run then: it
+is counted in the capture's record instead, and the graph adds the record
+to ``LAUNCHES`` at each replay (``mapping/graphs.py``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import json
@@ -68,9 +72,42 @@ _native_ready = False
 _lock = threading.Lock()
 
 
+# the launches this thread records while it captures a graph (None: it
+# captures none)
+_capture = threading.local()
+
+
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def count_launch(name: str) -> None:
+    """One launch of kernel ``name``: counted in LAUNCHES, or in the record
+    of the graph this thread captures."""
+    rec = getattr(_capture, "launches", None)
+    if rec is None:
+        LAUNCHES[name] += 1
+    else:
+        rec[name] = rec.get(name, 0) + 1
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """While the block runs, this thread's launches go to the yielded dict
+    (kernel name -> launches) and not to LAUNCHES."""
+    prev = getattr(_capture, "launches", None)
+    _capture.launches = rec = {}
+    try:
+        yield rec
+    finally:
+        _capture.launches = prev
+
+
+def add_launches(rec: dict) -> None:
+    """A replayed graph's launches (``recording_launches``) into LAUNCHES."""
+    for k, n in rec.items():
+        LAUNCHES[k] += n
 
 
 def _digest(paths, extra: tuple) -> str:

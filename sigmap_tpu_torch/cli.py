@@ -25,7 +25,8 @@ import time
 
 from . import _build
 
-# figures of the last -m run in this process (reads, rescues, seconds)
+# figures of the last -m run in this process (reads, rescues, seconds,
+# the turbo mapper's graphs)
 LAST_MAP: dict = {}
 
 
@@ -201,17 +202,19 @@ def run_map(args) -> int:
     records = run(signals)
     torch.cuda.synchronize()
     t_map = time.time() - t_map
-    rescued = (0, 0)
+    rescued, graphs = (0, 0), []
     if turbo:
         mapper.close()
         rescued = (mapper.n_rescued, mapper.n_rescued_mapped)
+        graphs = mapper.graph_stats()
     writer = PAFWriter(args.output, idx.ref_names, idx.ref_lengths)
     for rec in records:
         writer.append(rec)
     n = writer.finalize()
     LAST_MAP.clear()
     LAST_MAP.update(reads=len(signals), records=n, map_s=t_map,
-                    rescued=rescued[0], rescued_mapped=rescued[1])
+                    rescued=rescued[0], rescued_mapped=rescued[1],
+                    graphs=graphs)
     print(
         f"Finished mapping in {time.time() - t0:.1f}s "
         f"(mapping {t_map:.3f}s), # reads: {len(signals)}, "

@@ -22,6 +22,22 @@ BIG = 2**31 - 1
 SEED_PAD = 2.0e9
 
 
+# (radixes, device) -> [bd] f32 radix - 1 per bucketed dim: made once, by a
+# round's first (eager) run, so that a captured round copies nothing from
+# the host
+_CELL_HI: dict = {}
+
+
+def cell_limits(radixes: tuple, device):
+    """The largest cell index per bucketed dim, [bd] f32 on ``device``."""
+    key = (tuple(radixes), torch.device(device))
+    hi = _CELL_HI.get(key)
+    if hi is None:
+        hi = _CELL_HI[key] = torch.tensor(
+            [r - 1 for r in radixes], dtype=torch.float32, device=device)
+    return hi
+
+
 def _cells(v, w: float, radixes: tuple):
     """floor(v / w) clipped to [0, radix-1] per bucketed dim -> i32.
 
@@ -30,10 +46,9 @@ def _cells(v, w: float, radixes: tuple):
     divisor is a tensor: CUDA division by a host scalar multiplies by its
     reciprocal, which rounds differently from an f32 division."""
     wt = torch.full_like(v, w)
-    hi = torch.tensor([r - 1 for r in radixes], dtype=torch.float32,
-                      device=v.device)
     c = torch.floor(v / wt)
-    return torch.minimum(torch.clamp(c, min=0.0), hi).to(torch.int32)
+    return torch.minimum(torch.clamp(c, min=0.0),
+                         cell_limits(radixes, v.device)).to(torch.int32)
 
 
 def seed_cell_bounds(qr, radius: float, w: float, origin, radixes: tuple,

@@ -19,11 +19,17 @@ the batch's event before its first round (``TurboMapper.streaming_map``).
 Smaller batches are prepared inline, one after another.  The tile store is
 built on the host (``SweepIndex.build_cached(materialize=True)``) and
 uploaded once.
+
+On a GPU each round and each batch's ``batch_features`` is the replay of a
+CUDA graph (``mapping/graphs.py``; ``TurboMapper._graphs``), as the JAX
+package runs them as jitted programs; a round splits at its merge hook
+into ``round_search`` and ``round_finish``.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import sys
 import threading
 import time
@@ -208,6 +214,33 @@ def anchors_qpos_major(m_meta, m_d2, wrote, qpos, B: int, S: int, K: int):
 
 
 @dataclass
+class RoundSearch:
+    """A round up to the sweep's outputs (``round_search``): its reads,
+    seeds and match slots.  The slots are those a mapper merges across
+    index shards (``merge_matches``) before the round goes on."""
+
+    active: torch.Tensor      # [B] bool
+    counts: torch.Tensor      # [B] i32 this round's feature counts
+    has_f: torch.Tensor       # [B] bool
+    seed_ovf: torch.Tensor    # scalar bool
+    qpos: torch.Tensor        # [B, S] i32
+    m_meta: torch.Tensor      # [B*S, K] i32
+    m_d2: torch.Tensor        # [B*S, K] f32
+    cnt: torch.Tensor         # [B*S] i32 exact match totals
+    wrote: torch.Tensor       # [B*S] i32 slots filled
+
+    def slots(self) -> tuple:
+        """The match slots, in merge_matches' argument order."""
+        return self.m_meta, self.m_d2, self.cnt, self.wrote
+
+    def with_slots(self, slots) -> "RoundSearch":
+        """This round with other match slots (``slots()``'s order)."""
+        m_meta, m_d2, cnt, wrote = slots
+        return dataclasses.replace(self, m_meta=m_meta, m_d2=m_d2, cnt=cnt,
+                                   wrote=wrote)
+
+
+@dataclass
 class RoundAnchors:
     """The first half of a round: seeds searched, anchors laid out for the
     fused chainer (rows 0..RING-1 carried, then qpos-major seed slots)."""
@@ -236,6 +269,53 @@ def round_seeds(feats, counts_r, n_full, st: RoundState, p: TurboParams,
     return active, counts, seeds, qpos, has_f, seed_ovf
 
 
+def round_search(store: TileStore, feats, counts_r, n_full, st: RoundState,
+                 p: TurboParams, step: int, radius: float, dim: int,
+                 m: MappingConfig) -> RoundSearch:
+    """Seed windows and the sweep search (B3) of one round: the part of
+    turbo_round before the merge hook (turbo.py:159-165)."""
+    B = feats.shape[0]
+    active, counts, seeds, qpos, has_f, seed_ovf = round_seeds(
+        feats, counts_r, n_full, st, p, step, dim, m)
+    m_meta, m_d2, cnt, wrote = sweep_round(
+        seeds.reshape(B * p.S, 8), store.cum, store.tiles, store.meta,
+        store.rot, store.mu, store.origin, radius=radius, K=p.K,
+        TILE=p.TILE, dim=dim, block=p.block, radixes=store.radixes,
+        span=store.span, cell_width=store.cell_width,
+    )
+    return RoundSearch(active, counts, has_f, seed_ovf, qpos, m_meta, m_d2,
+                       cnt, wrote)
+
+
+def merged(rs: RoundSearch, merge_matches) -> RoundSearch:
+    """``rs`` with its match slots passed through ``merge_matches`` (None:
+    as they are); see ``round_anchors``."""
+    if merge_matches is None:
+        return rs
+    return rs.with_slots(merge_matches(*rs.slots()))
+
+
+def anchors_from_search(rs: RoundSearch, st: RoundState,
+                        p: TurboParams) -> RoundAnchors:
+    """A round's (merged) match slots -> the fused chainer's anchor rows."""
+    B = rs.active.shape[0]
+    S, K, RING = p.S, p.K, p.RING
+    n_t, n_q, n_d, n_g = anchors_qpos_major(rs.m_meta, rs.m_d2, rs.wrote,
+                                            rs.qpos, B, S, K)
+    c_t, c_q, c_g = st.carry[:3]
+    return RoundAnchors(
+        active=rs.active, counts=rs.counts, has_f=rs.has_f,
+        seed_ovf=rs.seed_ovf, cnt=rs.cnt,
+        a_t=torch.cat([c_t, n_t], dim=0).contiguous(),
+        a_q=torch.cat([c_q, n_q], dim=0).contiguous(),
+        a_d=torch.cat([torch.zeros((RING, B), dtype=torch.float32,
+                                   device=n_d.device), n_d],
+                      dim=0).contiguous(),
+        a_g=torch.cat([torch.where(c_g == -2, -1, c_g), n_g],
+                      dim=0).to(torch.int32).contiguous(),
+    )
+
+
 def round_anchors(store: TileStore, feats, counts_r, n_full, st: RoundState,
                   p: TurboParams, step: int, radius: float, dim: int,
                   m: MappingConfig, merge_matches=None) -> RoundAnchors:
@@ -245,50 +325,21 @@ def round_anchors(store: TileStore, feats, counts_r, n_full, st: RoundState,
     the same shapes that merges this shard's match slots with the other
     index shards' (``parallel.turbo_shard``, turbo.py:165,201-202);
     everything after the search, ``cnt`` included, sees its result."""
-    B = feats.shape[0]
-    S, K, RING = p.S, p.K, p.RING
-    dev = feats.device
-    i32 = torch.int32
-    active, counts, seeds, qpos, has_f, seed_ovf = round_seeds(
-        feats, counts_r, n_full, st, p, step, dim, m)
-    m_meta, m_d2, cnt, wrote = sweep_round(
-        seeds.reshape(B * S, 8), store.cum, store.tiles, store.meta,
-        store.rot, store.mu, store.origin, radius=radius, K=K, TILE=p.TILE,
-        dim=dim, block=p.block, radixes=store.radixes, span=store.span,
-        cell_width=store.cell_width,
-    )
-    if merge_matches is not None:
-        m_meta, m_d2, cnt, wrote = merge_matches(m_meta, m_d2, cnt, wrote)
-    n_t, n_q, n_d, n_g = anchors_qpos_major(m_meta, m_d2, wrote, qpos,
-                                            B, S, K)
-    c_t, c_q, c_g = st.carry[:3]
-    return RoundAnchors(
-        active=active, counts=counts, has_f=has_f, seed_ovf=seed_ovf,
-        cnt=cnt,
-        a_t=torch.cat([c_t, n_t], dim=0).contiguous(),
-        a_q=torch.cat([c_q, n_q], dim=0).contiguous(),
-        a_d=torch.cat([torch.zeros((RING, B), dtype=torch.float32,
-                                   device=dev), n_d], dim=0).contiguous(),
-        a_g=torch.cat([torch.where(c_g == -2, -1, c_g), n_g],
-                      dim=0).to(i32).contiguous(),
-    )
+    rs = round_search(store, feats, counts_r, n_full, st, p, step, radius,
+                      dim, m)
+    return anchors_from_search(merged(rs, merge_matches), st, p)
 
 
-def turbo_round(store: TileStore, feats, counts_r, n_full, st: RoundState,
-                p: TurboParams, step: int, radius: float, dim: int,
-                chain_cfg: ChainingConfig, m: MappingConfig,
-                merge_matches=None):
-    """One streaming round (turbo.py:159-293) on the device of ``feats``.
-
-    feats/counts_r are this round's chunk-feature slice ([B, F] / [B]);
-    merge_matches as in ``round_anchors``.
-    Returns (new RoundState, counts [B] i32, host_sig [B+2] u8: done flags
-    then the match and seed overflow flags)."""
-    B = feats.shape[0]
+def round_finish(rs: RoundSearch, n_full, st: RoundState, p: TurboParams,
+                 step: int, radius: float, dim: int,
+                 chain_cfg: ChainingConfig, m: MappingConfig):
+    """The part of a round after the merge hook (turbo.py:166-293): anchors,
+    fused chaining (B4), candidacy gates, stop rules, the new state and the
+    host signal.  Returns what ``turbo_round`` returns."""
+    B = rs.active.shape[0]
     S, K = p.S, p.K
     i32 = torch.int32
-    ra = round_anchors(store, feats, counts_r, n_full, st, p, step, radius,
-                       dim, m, merge_matches)
+    ra = anchors_from_search(rs, st, p)
     active, counts, has_f, cnt = ra.active, ra.counts, ra.has_f, ra.cnt
     match_ovf = (cnt > K).any()
     c_score, c_stt, c_stq, c_n, c_sumd = st.carry[3:]
@@ -347,6 +398,23 @@ def turbo_round(store: TileStore, feats, counts_r, n_full, st: RoundState,
     return new, counts, host_sig
 
 
+def turbo_round(store: TileStore, feats, counts_r, n_full, st: RoundState,
+                p: TurboParams, step: int, radius: float, dim: int,
+                chain_cfg: ChainingConfig, m: MappingConfig,
+                merge_matches=None):
+    """One streaming round (turbo.py:159-293) on the device of ``feats``:
+    ``round_search``, the merge hook, ``round_finish``.
+
+    feats/counts_r are this round's chunk-feature slice ([B, F] / [B]);
+    merge_matches as in ``round_anchors``.
+    Returns (new RoundState, counts [B] i32, host_sig [B+2] u8: done flags
+    then the match and seed overflow flags)."""
+    rs = round_search(store, feats, counts_r, n_full, st, p, step, radius,
+                      dim, m)
+    return round_finish(merged(rs, merge_matches), n_full, st, p, step,
+                        radius, dim, chain_cfg, m)
+
+
 def chunk_rows(q, qoff, qscale, n_full):
     """Quantized chunks -> event-detector rows.
 
@@ -358,9 +426,10 @@ def chunk_rows(q, qoff, qscale, n_full):
     rows = B * NC
     chunk_ok = torch.arange(NC, device=q.device)[None, :] < n_full[:, None]
     clen = torch.where(chunk_ok, Cs, 0).to(torch.int32).reshape(rows)
-    pa = ((q.reshape(rows, Cs).to(torch.float32)
-           + qoff.repeat_interleave(NC)[:, None])
-          * qscale.repeat_interleave(NC)[:, None])
+    # each read's affine on its NC rows (an expand: no host round trip)
+    qoff_r = qoff[:, None].expand(B, NC).reshape(rows, 1)
+    qscale_r = qscale[:, None].expand(B, NC).reshape(rows, 1)
+    pa = (q.reshape(rows, Cs).to(torch.float32) + qoff_r) * qscale_r
     return pa, clen
 
 
@@ -439,7 +508,9 @@ def quantize(pa, L, scale, off):
 # dispatch torch ops under one interpreter lock, and at once they slow
 # each other: the rounds beside a preparation take longer by about as much
 # as a small batch's head (mostly op dispatch) takes inline.  Measured
-# faster at 2048 reads a batch, slower at 128 (PERF.md §6).
+# faster at 2048 reads a batch, slower at 128 (PERF.md §6); with the rounds
+# and heads replayed as CUDA graphs it still wins every pass only at 2048
+# (at 128, 512 and 1024 no better than inline).
 OVERLAP_MIN_BATCH = 2048
 
 # Chunk-count buckets of the reference mapper (turbo.py:715).  Kept because
@@ -506,6 +577,12 @@ class TurboMapper:
                       if self.device.type == "cuda" else None)
         if config.runtime.read_batch < OVERLAP_MIN_BATCH:
             self._overlap_batches = False
+        if self.device.type != "cuda":
+            self._graphs = False
+        # the graphs met so far (mapping/graphs.py), by everything that
+        # fixes their shapes and constants
+        self._round_graphs: dict = {}
+        self._head_graphs: dict = {}
 
     def _tile_store(self) -> TileStore:
         """The tile store this mapper searches: the whole index's."""
@@ -552,17 +629,60 @@ class TurboMapper:
     # work in one order; __init__ sets it False below OVERLAP_MIN_BATCH
     _overlap_batches = True
 
+    # rounds and batch heads as replays of CUDA graphs (mapping/graphs.py),
+    # the counterpart of the JAX package's jitted turbo_round and
+    # batch_features; False runs them op by op.  __init__ sets it False on
+    # the CPU, where a test may set it True to run the graphs' static
+    # buffers without a capture
+    _graphs = True
+
+    def _round_graph(self, B: int, F: int):
+        """The round graph of batch shape (B, F), made at its first use."""
+        from .graphs import RoundGraph
+
+        m = self.cfg.mapping
+        args = (self.store, self.p, m.step_size, m.search_radius,
+                self.index.dim, self.cfg.chain, m)
+        split = self._merge_matches is not None
+        key = (B, F, id(self.store), *args[1:], split)
+        g = self._round_graphs.get(key)
+        if g is None:
+            g = self._round_graphs[key] = RoundGraph(args, B, F, self.device,
+                                                     split=split)
+        return g
+
+    def _head_graph(self, shape: tuple):
+        """The head graph of quantized chunks q of ``shape`` (B, NC, Cs),
+        made at its first use."""
+        from .graphs import HeadGraph
+
+        args = (self.p, self.cfg.event, self.cfg.mapping.compress_delta)
+        key = (*shape, *args)
+        g = self._head_graphs.get(key)
+        if g is None:
+            g = self._head_graphs[key] = HeadGraph(*shape, *args, self.device)
+        return g
+
+    def graph_stats(self) -> list[dict]:
+        """Each graph of this mapper: its captures, replays, capture ms,
+        pool MiB and launches a replay (``graphs.RoundGraph.stats``)."""
+        return [g.stats() for g in (*self._round_graphs.values(),
+                                    *self._head_graphs.values())]
+
     def streaming_map(self, signals: list[ReadSignal]) -> list[PAFRecord]:
         records: dict[int, PAFRecord] = {}
         B = self.cfg.runtime.read_batch
         batches = [(base, signals[base: base + B])
                    for base in range(0, len(signals), B)]
         # where the pass spent its time, on the host clock (perf_counter
-        # s): its start, each batch's rounds and the wait for the rescues;
-        # and the reads (indices into signals) whose capacity overflowed
-        # (row 7 of rb_i) and those the exact engine re-mapped
+        # s): its start, each batch's rounds, each round's host time until
+        # its work was sent and until its host signal came back
+        # (round_host), and the wait for the rescues; and the reads
+        # (indices into signals) whose capacity overflowed (row 7 of rb_i)
+        # and those the exact engine re-mapped
         self.last_pass = stamps = dict(start=time.perf_counter(), rounds=[],
-                                       rescues=None, overflow=[], rescued=[])
+                                       round_host=[], rescues=None,
+                                       overflow=[], rescued=[])
 
         def map_one(base, batch, prep):
             t0 = time.perf_counter()
@@ -647,10 +767,14 @@ class TurboMapper:
         m = self.cfg.mapping
         with _on_stream(self.device, stream):
             qd, qoff, qscale, n_full_d, n_full = self.upload_batch(batch)
-            feats, counts = batch_features(
-                qd, qoff, qscale, n_full_d, self.p, self.cfg.event,
-                m.compress_delta,
-            )
+            if self._graphs:
+                feats, counts = self._head_graph(tuple(qd.shape)).run(
+                    qd, qoff, qscale, n_full_d)
+            else:
+                feats, counts = batch_features(
+                    qd, qoff, qscale, n_full_d, self.p, self.cfg.event,
+                    m.compress_delta,
+                )
             event = None
             if self.device.type == "cuda":
                 event = torch.cuda.Event()
@@ -671,18 +795,28 @@ class TurboMapper:
             main.wait_event(prep.event)
             for t in (feats_all, counts_all, n_full_d):
                 t.record_stream(main)
-        st = init_round_state(B, self.p.RING, self.device)
+        if self._graphs:
+            graph = self._round_graph(B, feats_all.shape[-1])
+            graph.start(n_full_d)
+        else:
+            st = init_round_state(B, self.p.RING, self.device)
         mt = np.zeros(B)
         prev_done = n_full == 0
         done_h = prev_done.copy()
         rounds = 0
         while not done_h.all():
             t0 = time.perf_counter()
-            st, _counts, host_sig = turbo_round(
-                self.store, feats_all[:, rounds], counts_all[:, rounds],
-                n_full_d, st, self.p, m.step_size, m.search_radius,
-                self.index.dim, self.cfg.chain, m, self._merge_matches,
-            )
+            if self._graphs:
+                host_sig = graph.run(feats_all[:, rounds],
+                                     counts_all[:, rounds],
+                                     self._merge_matches)
+            else:
+                st, _counts, host_sig = turbo_round(
+                    self.store, feats_all[:, rounds], counts_all[:, rounds],
+                    n_full_d, st, self.p, m.step_size, m.search_radius,
+                    self.index.dim, self.cfg.chain, m, self._merge_matches,
+                )
+            t_sent = time.perf_counter()
             h = host_sig.cpu().numpy()        # the round's one device read
             done_h, ovf_h = h[:B].astype(bool), h[B:].astype(bool)
             if ovf_h.any():
@@ -699,11 +833,15 @@ class TurboMapper:
                         file=sys.stderr,
                     )
                     self._ovf_warned = True
-            round_ms = (time.perf_counter() - t0) * 1000
+            t1 = time.perf_counter()
+            self.last_pass["round_host"].append((t_sent - t0, t1 - t0))
+            round_ms = (t1 - t0) * 1000
             act = ~prev_done
             mt[act] += round_ms / max(1, int(act.sum()))
             prev_done = done_h
             rounds += 1
+        if self._graphs:
+            st = graph.state
         rb_f = st.rb_f.cpu().numpy()
         rb_i = st.rb_i.cpu().numpy()
         chunk_idx = st.chunk_idx.cpu().numpy()

@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import torch
 
-from .._build import LAUNCHES, check, kernels
+from .._build import check, count_launch, kernels
 from ..config import ChainingConfig
 
 NEG = -1.0e30
@@ -274,5 +274,5 @@ def chain_fused(a_t, a_q, a_d, a_g, c_score, c_stt, c_stq, c_n, c_sumd,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     check(err, "chain_fused")
-    LAUNCHES["chain_fused"] += 1
+    count_launch("chain_fused")
     return sum_f, sum_i, tuple(outs)

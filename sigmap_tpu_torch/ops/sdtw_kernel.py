@@ -32,7 +32,7 @@ from typing import NamedTuple
 
 import torch
 
-from .._build import LAUNCHES, check, kernels
+from .._build import check, count_launch, kernels
 
 BIG = 1.0e30
 
@@ -186,5 +186,5 @@ def sdtw(targets, t_len, queries, q_len, launch: Plan | None = None):
         end.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
     )
     check(err, "sdtw")
-    LAUNCHES["sdtw"] += 1
+    count_launch("sdtw")
     return best, end

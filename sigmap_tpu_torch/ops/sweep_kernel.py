@@ -26,7 +26,7 @@ from __future__ import annotations
 
 import torch
 
-from .._build import LAUNCHES, check, kernels
+from .._build import check, count_launch, kernels
 
 INF = 1.0e30
 
@@ -179,5 +179,5 @@ def sweep_search(seeds, blockmeta, tiles, meta, radius: float, K: int,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     check(err, "sweep")
-    LAUNCHES["sweep"] += 1
+    count_launch("sweep")
     return m_meta, m_d2, m_cnt

@@ -12,7 +12,10 @@ the sweep tile store over "index" (counterpart of
   rank's index group with one all-gather and the K smallest d^2, ties to
   the lower shard-major slot as ``jax.lax.top_k`` breaks them
   (``merge_shard_matches``), and the exact match totals with a sum: the
-  only collectives of the round loop.
+  only collectives of the round loop.  On a GPU a round is two replayed
+  CUDA graphs, up to the sweep's outputs and from the merged slots on,
+  with the merge run eagerly between them, whatever the backend
+  (``mapping/graphs.py:RoundGraph``).
 * Chaining, stop and summary state is data-sharded and index-replicated:
   the I ranks of a data group hold the same state, run the same rounds and
   leave the loop together.  Collectives run only inside an index group, so

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from .._build import LAUNCHES, check, kernels
+from .._build import check, count_launch, kernels
 from ..config import EventDetectorConfig
 
 FLT_MAX = 3.4028234663852886e38  # float32 max, exactly representable
@@ -113,7 +113,7 @@ def detect_peaks(tstat1, tstat2, lengths, cfg: EventDetectorConfig):
         torch.cuda.current_stream(dev).cuda_stream,
     )
     check(err, "peaks")
-    LAUNCHES["peaks"] += 1
+    count_launch("peaks")
     return out[:, :2 * C].contiguous() if pad else out
 
 
@@ -158,5 +158,5 @@ def compress_keep(norm, n, delta: float):
         keep.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
     )
     check(err, "compress_keep")
-    LAUNCHES["compress_keep"] += 1
+    count_launch("compress_keep")
     return keep[:, :E].contiguous() if pad else keep

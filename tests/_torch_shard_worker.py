@@ -75,6 +75,9 @@ def main():
     ap.add_argument("--out-dir", required=True,
                     help="where it writes rank<R>.json")
     ap.add_argument("--paf-dir")
+    ap.add_argument("--eager", action="store_true",
+                    help="run the rounds and heads op by op, not as the "
+                         "CUDA graphs a mapper on a GPU replays")
     a = ap.parse_args()
 
     torch.set_num_threads(a.threads)
@@ -93,6 +96,8 @@ def main():
     mapper = TurboShardMapper(index, cfg, mesh,
                               TurboParams(**json.loads(a.params)),
                               device=a.device)
+    if a.eager:
+        mapper._graphs = False
     setup_s = time.perf_counter() - t0
     map_s = []
     for _ in range(a.passes):
@@ -111,6 +116,7 @@ def main():
                        overflow=mapper.last_pass["overflow"],
                        rescued=mapper.last_pass["rescued"],
                        n_rescued_here=mapper.n_rescued,
+                       graphs=mapper.graph_stats(),
                        records=[dataclasses.asdict(r) for r in records]), f)
     if a.paf_dir:
         # each rank writes its contiguous part of the records; rank 0

@@ -156,6 +156,51 @@ def test_compress_keep_plain_matches_pallas_on_adversarial_rows():
     assert port[7, 63:75].tolist() == [1] + [0] * 9 + [1, 1]
 
 
+def _tstat_f64(sigs, lengths, w):
+    """The two-window t-statistic of batch_tstat in float64 (numpy): the
+    yardstick a mismatch between the port and the JAX package is read
+    against."""
+    B, C = sigs.shape
+    i = np.arange(C)[None, :]
+    L = lengths.astype(np.int64)[:, None]
+    x = np.where(i < L, sigs, 0.0).astype(np.float64)
+    xp = np.pad(x, ((0, 0), (w, w)))
+    win = [xp[:, w + off: w + off + C] for off in range(-w, w)]
+    m1, m2 = sum(win[:w]) / w, sum(win[w:]) / w
+    v = (sum((a - m1) ** 2 for a in win[:w])
+         + sum((a - m2) ** 2 for a in win[w:])) / w
+    with np.errstate(divide="ignore", invalid="ignore"):
+        t = np.abs(m2 - m1) / np.sqrt(np.maximum(v, tev.FLT_MIN) / w)
+    valid = (i >= w) & (i <= L - w) & (L >= 2 * w)
+    return np.where(valid, t, 0.0)
+
+
+def _tstat_mismatch(got, want, sigs, lengths, w):
+    """None if the port's t-statistics `got` are within TSTAT_RTOL of the
+    JAX package's `want` (assert_allclose's test), else what differs: how
+    many, the first (row, column) with both values, the float64 value and
+    the zero mask there, and how far each side lies from float64 over the
+    whole array, which names the side that moved."""
+    close = np.isclose(got, want, rtol=TSTAT_RTOL, atol=TSTAT_RTOL,
+                       equal_nan=True)
+    if close.all():
+        return None
+    ref = _tstat_f64(sigs, lengths, w)
+    r, c = (int(k) for k in np.argwhere(~close)[0])
+    valid = w <= c <= lengths[r] - w and lengths[r] >= 2 * w
+
+    def off(a):
+        return float(np.max(np.abs(a - ref) / (np.abs(ref) + 1)))
+
+    return (f"{int((~close).sum())} of {got.size} t-statistics differ "
+            f"beyond TSTAT_RTOL; the first at (row {r}, column {c}): port "
+            f"{got[r, c]!r}, JAX {want[r, c]!r}, float64 {ref[r, c]!r}; "
+            f"zero there: port {bool(got[r, c] == 0)}, JAX "
+            f"{bool(want[r, c] == 0)}, inside the valid mask {valid}; "
+            f"largest |t - float64| / (|float64| + 1): port {off(got):.3g}, "
+            f"JAX {off(want):.3g}")
+
+
 @pytest.mark.parametrize("case", sorted(CASES))
 @pytest.mark.parametrize("w", [3, 6])
 def test_batch_tstat_matches(case, w):
@@ -164,7 +209,32 @@ def test_batch_tstat_matches(case, w):
     got = tev.batch_tstat(torch.from_numpy(sigs), torch.from_numpy(lengths),
                           w).numpy()
     np.testing.assert_array_equal(got == 0, want == 0)
-    np.testing.assert_allclose(got, want, rtol=TSTAT_RTOL, atol=TSTAT_RTOL)
+    # assert_allclose(got, want, rtol=atol=TSTAT_RTOL), with a message that
+    # names the first mismatch and the side that moved
+    msg = _tstat_mismatch(got, want, sigs, lengths, w)
+    assert msg is None, msg
+
+
+def test_tstat_mismatch_names_itself():
+    """The t-statistic test's failure message: the mismatch count, the
+    first (row, column), both values, float64 there, the zero mask, and
+    which side lies off float64; silent within TSTAT_RTOL."""
+    sigs, lengths = CASES["events"]()
+    want = tev.batch_tstat(torch.from_numpy(sigs), torch.from_numpy(lengths),
+                           3).numpy()
+    ref = _tstat_f64(sigs, lengths, 3)
+    assert np.all(np.abs(want - ref) <= TSTAT_RTOL * (np.abs(ref) + 1))
+    assert _tstat_mismatch(want, want.copy(), sigs, lengths, 3) is None
+    got = want.copy()
+    got[1, 40] *= 1 + 3e-4
+    got[2, 100] *= 1 + 3e-4
+    msg = _tstat_mismatch(got, want, sigs, lengths, 3)
+    assert msg.startswith("2 of 7500 t-statistics differ")
+    assert "(row 1, column 40)" in msg and "inside the valid mask True" in msg
+    assert f"port {got[1, 40]!r}, JAX {want[1, 40]!r}" in msg
+    port_off, jax_off = (float(x) for x in msg.rsplit(": port ", 1)[1]
+                         .split(", JAX "))
+    assert port_off > 1e-4 > jax_off
 
 
 @pytest.mark.parametrize("case", sorted(CASES))

@@ -16,6 +16,7 @@ import dataclasses
 import io
 import json
 import os
+import re
 import sys
 
 import numpy as np
@@ -301,6 +302,167 @@ def test_turbo_overlap_on_gpu_matches_sequential(driver_setup, cuda_device):
     assert got[True] == got[False]
 
 
+def _records_without_mt(recs):
+    out = [dataclasses.asdict(r) for r in recs]
+    for r in out:
+        r["tags"] = [t for t in r["tags"].split("\t") if t[:3] != "mt:"]
+    return out
+
+
+@pytest.mark.parametrize("overlap", [True, False], ids=["overlap",
+                                                        "inline"])
+def test_turbo_graphs_on_gpu_match_eager(driver_setup, cuda_device,
+                                         overlap):
+    """streaming_map with the rounds and heads replayed from CUDA graphs
+    gives the records of the same mapper run op by op, every field and tag
+    but mt:, exactly, with the next batch prepared on the side stream while
+    a batch maps and with each batch prepared inline (8 reads, read batch
+    2: four batches, so graphs are replayed across batches); every graph
+    replays, and its pool's size is reported; a profiled pass shows B3 and
+    B4 once a round."""
+    from sigmap_tpu_torch.config import RuntimeConfig, SigmapConfig
+    from sigmap_tpu_torch.mapping import turbo as T
+
+    idx, _, signals = driver_setup
+    cfg = SigmapConfig(runtime=RuntimeConfig(read_batch=2))
+    mapper = T.TurboMapper(idx, cfg, T.TurboParams(S=256, K=16, RING=64,
+                                                   TILE=256),
+                           device=cuda_device)
+    try:
+        assert mapper._graphs
+        mapper._overlap_batches = overlap
+        mapper._graphs = False
+        want = _records_without_mt(mapper.streaming_map(signals))
+        mapper._graphs = True
+        for _ in range(2):
+            got = mapper.streaming_map(signals)
+            torch.cuda.synchronize()
+            assert _records_without_mt(got) == want
+        # the profiler's trace holds the kernels each replay launched: B3
+        # and B4 once a round
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CUDA],
+                acc_events=True) as prof:
+            got = mapper.streaming_map(signals)
+            torch.cuda.synchronize()
+        assert _records_without_mt(got) == want
+        rounds = len(mapper.last_pass["round_host"])
+        counts = {k: sum(e.count for e in prof.key_averages() if k in e.key)
+                  for k in ("sweep_kernel", "chain_fused_kernel")}
+        assert counts == dict(sweep_kernel=rounds,
+                              chain_fused_kernel=rounds), (counts, rounds)
+        stats = mapper.graph_stats()
+    finally:
+        mapper.close()
+    print(json.dumps(stats))
+    assert len(want) == len(signals)
+    assert {s["graph"].split()[0] for s in stats} == {"round", "head"}
+    for s in stats:
+        assert s["captures"] == 1 and s["replays"] > 0, s
+        assert s["pool_mib"] > 0, s
+
+
+def test_graph_replays_add_their_captured_launches(driver_setup,
+                                                   cuda_device):
+    """A graph's capture launches nothing and counts nothing; each replay
+    adds to LAUNCHES the launches its capture recorded: B3 and B4 once a
+    round, B1 and B2 once a head.  The first call of each graph runs its
+    body eagerly, and its launches count as they happen."""
+    from sigmap_tpu_torch import _build
+    from sigmap_tpu_torch.config import RuntimeConfig, SigmapConfig
+    from sigmap_tpu_torch.mapping import turbo as T
+
+    idx, _, signals = driver_setup
+    B = 4
+    mapper = T.TurboMapper(idx, SigmapConfig(runtime=RuntimeConfig(
+        read_batch=B)), T.TurboParams(S=256, K=16, RING=64, TILE=256),
+        device=cuda_device)
+    names = ("peaks", "compress_keep", "sweep", "chain_fused")
+    try:
+        qd, qoff, qscale, n_full_d, _ = mapper.upload_batch(signals[:B])
+        head = mapper._head_graph(tuple(qd.shape))
+        graph = None
+        for call in range(3):
+            before = {k: LAUNCHES[k] for k in names}
+            feats, counts = head.run(qd, qoff, qscale, n_full_d)
+            if graph is None:
+                graph = mapper._round_graph(B, feats.shape[-1])
+                graph.start(n_full_d)
+            graph.run(feats[:, 0], counts[:, 0])
+            torch.cuda.synchronize()
+            grew = {k: LAUNCHES[k] - before[k] for k in names}
+            assert grew == dict(peaks=1, compress_keep=1, sweep=1,
+                                chain_fused=1), (call, grew)
+        assert head.parts[0].launches == dict(peaks=1, compress_keep=1)
+        assert graph.parts[0].launches == dict(sweep=1, chain_fused=1)
+        assert head.parts[0].replays == graph.parts[0].replays == 2
+        assert getattr(_build._capture, "launches", None) is None
+    finally:
+        mapper.close()
+
+
+# a body that reads a device value to the host, captured two ways: by
+# graphs.capture itself, and by a head graph whose batch_features does so
+HOST_READ_IN_CAPTURE = {
+    "capture": """
+x = torch.ones(4, device=dev)
+G.capture(lambda: (x * 2).sum().item(), dev)
+""",
+    "head_graph": """
+eager = G.batch_features
+
+
+def reads_back(*args):
+    out = eager(*args)
+    out[1].sum().item()
+    return out
+
+
+G.batch_features = reads_back
+head = G.HeadGraph(4, 1, 4000, T.TurboParams(), EventDetectorConfig(), 0.1,
+                   dev)
+q = torch.randint(20000, 40000, (4, 1, 4000), dtype=torch.int32).to(dev)
+args = (q, torch.zeros(4, device=dev), torch.full((4,), 0.01, device=dev),
+        torch.ones(4, dtype=torch.int32, device=dev))
+try:
+    head.run(*args)
+finally:
+    print("graphs left behind:", len(head.parts))
+""",
+}
+HOST_READ_PRELUDE = """
+import torch
+from sigmap_tpu_torch.config import EventDetectorConfig
+from sigmap_tpu_torch.mapping import graphs as G, turbo as T
+
+dev = torch.device("cuda")
+"""
+
+
+@pytest.mark.parametrize("body", sorted(HOST_READ_IN_CAPTURE))
+def test_host_read_in_a_capture_raises(cuda_device, body):
+    """A body that reads a device value to the host cannot be captured: the
+    capture raises, and a head graph whose body does so raises from run()
+    after its eager first run, leaving no graph, instead of going on
+    eagerly.  Each in a process of its own: a broken-off capture leaves
+    PyTorch's allocator and generator in capture mode."""
+    import subprocess
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run(
+        [sys.executable, "-c", HOST_READ_PRELUDE + HOST_READ_IN_CAPTURE[body]],
+        cwd=root, capture_output=True, text=True, timeout=300)
+    print(r.stdout, r.stderr[-2000:])
+    assert r.returncode != 0
+    # a RuntimeError (torch.AcceleratorError in recent versions) naming the
+    # capture
+    raised = [x for x in r.stderr.splitlines()
+              if re.match(r"[\w.]*Error: ", x)]
+    assert raised and "captur" in raised[-1], r.stderr[-2000:]
+    if body == "head_graph":
+        assert "graphs left behind: 0" in r.stdout
+
+
 @pytest.mark.parametrize("NC", [1, 4])
 def test_quantize_on_gpu_matches_cpu(driver_setup, cuda_device, NC):
     """The transport quantization's device half on the card, from a pinned
@@ -365,6 +527,21 @@ def test_shard_mapper_in_a_one_rank_nccl_group(driver_setup, cuda_device,
     shard_equal("mesh (1, 1), NCCL", *threaded_shard_map(
         idx, mapper.cfg, T.TurboParams(**params), 1, signals, cuda_device),
         got, outs[0])
+    # its round is two graphs around the merge, and it maps as the same
+    # mapper run op by op does
+    (round_graph,) = [g for g in outs[0]["graphs"]
+                      if g["graph"].startswith("round")]
+    assert round_graph["captures"] == 2 and round_graph["replays"] > 0
+    eager, _ = run_shard_ranks(
+        (1, 1), str(tmp_path / "eager"),
+        ["--backend", "nccl", "--device", "cuda", "--timeout", "120",
+         "--index", prefix, "--signals", str(sig), "--read-batch",
+         str(len(signals)), "--params", json.dumps(params), "--eager"],
+        wall_s=300)
+    assert eager[0]["graphs"] == []
+    shard_equal("mesh (1, 1), NCCL, graphs against eager",
+                [PAFRecord(**r) for r in eager[0]["records"]], eager[0],
+                got, outs[0])
 
 
 def test_align_modes_on_gpu_match_cpu(debug_work, cuda_device):

@@ -18,7 +18,8 @@ MODULES = [
     "sigmap_tpu_torch.signal.events_kernels",
     "sigmap_tpu_torch.ops.sweep_kernel", "sigmap_tpu_torch.ops.chain_fused",
     "sigmap_tpu_torch.mapping.sweep_search",
-    "sigmap_tpu_torch.mapping.turbo", "sigmap_tpu_torch.mapping.records",
+    "sigmap_tpu_torch.mapping.turbo", "sigmap_tpu_torch.mapping.graphs",
+    "sigmap_tpu_torch.mapping.records",
     "sigmap_tpu_torch.ops.sdtw_kernel", "sigmap_tpu_torch.signal.events_ref",
     "sigmap_tpu_torch.debug_modes", "sigmap_tpu_torch.mapping.seeding",
     "sigmap_tpu_torch.mapping.driver", "sigmap_tpu_torch.config",
@@ -193,6 +194,18 @@ def test_chip_smoke_pass_waits():
                         rescues=(2.0, 2.125)))
     assert w == dict(head_ms=250.0, between_ms=[62.5],
                      rounds_ms=[250.0, 437.5], rescue_tail_ms=125.0)
+
+
+def test_chip_smoke_round_host_ms():
+    """Phases 5 and 10 read each round's host time from the mapper's own
+    stamps: the rounds, and the median ms until a round's work was sent
+    and until its host signal came back."""
+    sys.path.insert(0, ROOT)
+    from chip_smoke import round_host_ms
+
+    w = round_host_ms(dict(round_host=[(0.001, 0.004), (0.003, 0.005),
+                                       (0.002, 0.0045)]))
+    assert w == dict(rounds=3, sent_ms=2.0, back_ms=4.5)
 
 
 def test_chip_smoke_fails_without_the_repo(tmp_path):
