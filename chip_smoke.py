@@ -23,8 +23,8 @@
    genome with BLOW5 (zlib) reads, scores the PAF against the simulation
    truth, checks that every kernel of the path was launched, and prints
    each CUDA graph of the mapper (``mapping/graphs.py``: the round graph,
-   the head graph of each chunk bucket) with its replays, capture ms and
-   pool MiB; a round graph must have replayed;
+   the head graph of each head block shape) with its replays, capture ms
+   and pool MiB; a round graph must have replayed;
 5. maps the reads again with the rescue oracle built (warm): on an eager
    pass the sweep's tile steps and pair-evaluations per round, split
    between blocks made only of SEED_PAD seeds and the rest, and each
@@ -103,6 +103,22 @@
     (``threaded_shard_map``: one mapper a tile shard on a thread each,
     the slots merged by ``merge_shard_matches`` at a barrier), and so do
     the overflow and rescued reads; any rank's failure fails the phase.
+12. long reads (``long_read_phase``): LONG_READS reads of log-normal
+    lengths (median LONG_MEDIAN bases, sigma LONG_SIGMA, clipped to
+    LONG_CLIP; about 9% pass the 30-chunk cap), LONG_OFF of them from a
+    random genome that is not indexed, on phase 4's index at read batch
+    LONG_BATCH and HOST_THREADS threads, with phase 5's rescue oracle: an
+    eager pass, then LONG_GRAPH_PASSES passes with the graphs, records
+    equal apart from mt:, on-target reads scored like phase 4 (99%),
+    off-target ones mapped counted (false positives, not gated), rounds a
+    batch, reads at the cap, overflow and rescued reads, the rescue tail,
+    B1/B2 once a head block; the head's blocks and ms at NC=30 and its ms
+    a row at each block size of HEAD_BLOCK_TRIES; each graph's pool; then
+    one batch of the same reads cut to each of the ten chunk buckets,
+    prepared with the graphs and equal exactly to the whole batch's head
+    run eagerly in one block, with each bucket's rows, blocks and head ms,
+    and the head graphs' pools after all ten buckets (at most
+    HEAD_POOL_LIMIT_MIB), and the memory reserved.
 
 A line before the last is the per-kernel JSON record (each kernel's
 launches, max_abs_err, ms, plain_ms, its bound from the operations and bytes
@@ -137,7 +153,7 @@ DTW_SHAPE = (1024, 2048, 512)   # bench.py:bench_dtw's B, T, Q
 # exact engine streams chunks on the host's chaining; batch mode seeds
 # whole reads at step 1 (~8x the seeds of a streaming chunk pass)
 EXACT_READS = 512
-BATCH_MODE_READS = 128
+BATCH_MODE_READS = 64
 EXACT_READ_BATCH = 512   # --read-batch of phase 7: one wavefront of reads
 # phase 8: TurboParams whose S*K rows a read B4 takes only in windows (the
 # JAX package's K=16 operating point at S=1024), on a prefix of the reads
@@ -164,6 +180,18 @@ SHARD_GLOO_PASSES = 3    # a rank's passes, the first cold
 SHARD_WORKER = os.path.join(ROOT, "tests", "_torch_shard_worker.py")
 SHARD_WALL_S = 240       # a worker's wall limit
 SHARD_PG_TIMEOUT_S = 180  # its process group's timeout
+# phase 12: long mixed-length reads with off-target reads (Read Until
+# traffic) on phase 4's genome and index, one batch at the CLI's read batch
+LONG_READS = 2048
+LONG_BATCH = 2048
+LONG_MEDIAN = 6000       # bases; log-normal read lengths
+LONG_SIGMA = 0.6
+LONG_CLIP = (1000, 40_000)
+LONG_OFF = 0.10          # share of reads from a genome that is not indexed
+LONG_OFF_GENOME = 2_000_000
+LONG_GRAPH_PASSES = 2
+HEAD_BLOCK_TRIES = (4096, 8192, 12288, 16384)   # head block sizes timed
+HEAD_POOL_LIMIT_MIB = 4700.0   # the head graphs' pools after all buckets
 
 KERNELS = {
     "peaks": ("sigmap_tpu_torch/csrc/events.cu",
@@ -757,9 +785,10 @@ def make_workload(work, genome_bases, n_reads):
 
 def first_batch(map_args, dev, params=None):
     """The mapper of the `-m` arguments on `dev` (with TurboParams `params`,
-    default the operating point) and the first batch's feature stages, as
-    the main path's functions build them: (mapper, signals, cfg, fs,
-    n_full, clen, (B, NC, Cs))."""
+    default the operating point), the feature stages of the first batch's
+    first head block, and the batch's features, as the main path's
+    functions build them: (mapper, signals, cfg, fs, n_full, clen, feats
+    [B, NC, F], counts [B, NC])."""
     from sigmap_tpu_torch.cli import build_parser, make_config
     from sigmap_tpu_torch.index.build import SignalIndex
     from sigmap_tpu_torch.io.signals import load_all_read_signals
@@ -775,10 +804,14 @@ def first_batch(map_args, dev, params=None):
     p = mapper.p
     qd, qoff, qscale, n_full, _ = mapper.upload_batch(
         signals[: cfg.runtime.read_batch])
-    pa, clen = T.chunk_rows(qd, qoff, qscale, n_full)
-    fs = EV.feature_stages(pa, clen, cfg.event, p.max_events,
-                           p.max_features, m.compress_delta)
-    return mapper, signals, cfg, fs, n_full, clen, tuple(qd.shape)
+    rows = T.head_inputs(qd, qoff, qscale, n_full)
+    size = T.head_blocks(rows[0].shape[0], mapper._head_block)[0][1]
+    q, qo, qs, clen = T.padded_block([t[:size] for t in rows], size)
+    fs = EV.feature_stages(T.dequantize(q, qo, qs), clen, cfg.event,
+                           p.max_events, p.max_features, m.compress_delta)
+    feats, counts = T.batch_features(qd, qoff, qscale, n_full, p, cfg.event,
+                                     m.compress_delta, mapper._head_block)
+    return mapper, signals, cfg, fs, n_full, clen, feats, counts
 
 
 def round0_sweep(mapper, feats, counts, n_full, cfg):
@@ -885,16 +918,17 @@ def compare_kernels(map_args, records, dev):
     from sigmap_tpu_torch.ops import sweep_kernel as SK
     from sigmap_tpu_torch.signal import events_kernels as EK
 
-    mapper, signals, cfg, fs, n_full, clen, (B, NC, Cs) = first_batch(
+    mapper, signals, cfg, fs, n_full, clen, feats, counts = first_batch(
         map_args, dev)
     m, p, idx = cfg.mapping, mapper.p, mapper.index
+    R, Cs = fs.t1.shape
 
-    # --- B1 / B2 on the batch's chunk rows ---------------------------------
+    # --- B1 / B2 on the first head block's chunk rows ----------------------
     ec, delta = cfg.event, m.compress_delta
-    check(records, "peaks", f"R={B * NC} C={Cs}", (fs.emits,),
+    check(records, "peaks", f"R={R} C={Cs}", (fs.emits,),
           lambda: (EK.detect_peaks(fs.t1, fs.t2, clen, ec),),
           lambda: (EK.detect_peaks_plain(fs.t1, fs.t2, clen, ec),),
-          plain_reps=0, work=peaks_work(B * NC, Cs))
+          plain_reps=0, work=peaks_work(R, Cs))
     copies = sum(not (x.is_contiguous() and x.dtype == torch.float32)
                  for x in (fs.t1, fs.t2))
     records["peaks"].update(wrapper_layout_copies=copies,
@@ -918,11 +952,11 @@ def compare_kernels(map_args, records, dev):
     assert torch.equal(EK.detect_peaks(off, b2, b_len, ec),
                        EK.detect_peaks(b1, b2, b_len, ec)), \
         "B1 disagrees on a view off a 16-byte boundary"
-    check(records, "compress_keep", f"R={B * NC} E={p.max_events}",
+    check(records, "compress_keep", f"R={R} E={p.max_events}",
           (fs.keep,),
           lambda: (EK.compress_keep(fs.norm, fs.num_events, delta),),
           lambda: (EK.compress_keep_plain(fs.norm, fs.num_events, delta),),
-          work=keep_work(B * NC, p.max_events))
+          work=keep_work(R, p.max_events))
     copies = int(not (fs.norm.is_contiguous()
                       and fs.norm.dtype == torch.float32
                       and fs.norm.shape[1] % 4 == 0))
@@ -945,8 +979,7 @@ def compare_kernels(map_args, records, dev):
               sub=sub, work=keep_work(*kn.shape))
 
     # --- B3 on round 0's seeds, against the whole tile store ---------------
-    feats = fs.feats.reshape(B, NC, -1)
-    counts = fs.counts.reshape(B, NC)
+    B = feats.shape[0]
     qr_s, bm, kw = round0_sweep(mapper, feats, counts, n_full, cfg)
     s = mapper.store
     G = bm.shape[1]
@@ -1167,16 +1200,19 @@ def _overlap(u, v):
     return total
 
 
-def stream_overlap(trace_path, side_names, main_names, n_batches):
+def stream_overlap(trace_path, side_names, main_names, n_batches,
+                   per_batch=1):
     """How long two CUDA streams' device work ran at once, batch by batch,
     in a chrome trace.  The side stream is the one that ran a kernel whose
     name holds side_names[0] (B1), the main stream the one that ran one
-    holding main_names[0] (B3).  A batch's head runs one side_names[0]
-    kernel, so the side stream must hold n_batches of them; its intervals
-    (kernels, copies, memsets) split into n_batches bursts, one such kernel
-    each, at the longest gap between each two of them (the longest gaps of
-    the whole stream can both fall inside one batch's head, whose host
-    round trip and glue are not evenly spaced).  For each burst: its
+    holding main_names[0] (B3).  A batch's head runs ``per_batch``
+    side_names[0] kernels (one a head block), so the side stream must hold
+    n_batches * per_batch of them; its intervals (kernels, copies,
+    memsets) split into n_batches bursts, per_batch such kernels each, at
+    the longest gap between the last such kernel of one batch and the
+    first of the next (the longest gaps of the whole stream can both fall
+    inside one batch's head, whose host round trip and glue are not evenly
+    spaced).  For each burst: its
     device time, the time it ran together with any main-stream work, and
     the time its kernels named in side_names ran together with main-stream
     kernels named in main_names, in ms, and its number of side_names[0]
@@ -1206,14 +1242,15 @@ def stream_overlap(trace_path, side_names, main_names, n_batches):
     side = sorted(spans(side_id))
     main_all = _union((a, b) for a, b, _ in spans(main_id))
     main_named = _union((a, b) for a, b, _ in spans(main_id, main_names))
-    firsts = [i for i, (_, _, n) in enumerate(side) if side_names[0] in n]
-    if len(firsts) != n_batches:
+    marks = [i for i, (_, _, n) in enumerate(side) if side_names[0] in n]
+    if len(marks) != n_batches * per_batch:
         raise AssertionError(
-            f"the side stream's bursts are not one a batch: {len(firsts)} "
-            f"{side_names[0]} for {n_batches} batches")
+            f"the side stream's bursts are not one a batch: {len(marks)} "
+            f"{side_names[0]} for {n_batches} batches of {per_batch}")
+    lasts, firsts = marks[per_batch - 1::per_batch], marks[per_batch::per_batch]
     cuts = [0, *(max(range(f0 + 1, f1 + 1),
                      key=lambda i: side[i][0] - side[i - 1][1])
-                 for f0, f1 in zip(firsts, firsts[1:])), len(side)]
+                 for f0, f1 in zip(lasts, firsts)), len(side)]
     out = []
     for lo, hi in zip(cuts, cuts[1:]):
         burst = side[lo:hi]
@@ -1673,16 +1710,16 @@ def wide_phase(records, by_path, dev, work, reads, map_args, oracle):
 
     params = T.TurboParams(**WIDE)
     t0 = time.perf_counter()
-    mapper, signals, cfg, fs, n_full, _, (B, NC, _) = first_batch(
+    mapper, signals, cfg, fs, n_full, _, feats, counts = first_batch(
         map_args, dev, params)
+    B = feats.shape[0]
     log(f"wide: TurboMapper(S={params.S}, K={params.K}) and the first batch "
         f"in {time.perf_counter() - t0:.1f} s")
     m, p = cfg.mapping, mapper.p
     ckw = dict(radius=m.search_radius, dim=mapper.index.dim, ring=p.RING,
                cfg=cfg.chain, kb=p.K)
-    args, A = chain_rounds(mapper, cfg, fs.feats.reshape(B, NC, -1),
-                           fs.counts.reshape(B, NC), n_full)
-    del fs
+    args, A = chain_rounds(mapper, cfg, feats, counts, n_full)
+    del fs, feats, counts
     big = CF.largest_window(p.RING, p.K)
     for r, a in enumerate(args):
         rec = chain_check(records, f"round {r} A={A} B={B} RING={p.RING} "
@@ -1883,7 +1920,6 @@ def three_batch_phase(by_path, dev, work, genome_bases, oracle):
     assert correct >= 0.99 * n, f"three batches: only {correct}/{n} correct"
     for k in ("peaks", "compress_keep", "sweep", "chain_fused"):
         assert launches[k] > 0, f"three batches: {k} was not launched"
-    assert launches["peaks"] == n_batches, "B1 is launched once a batch"
 
     # --- warm: the overlap on and off, alternated, on one mapper ----------
     a = build_parser().parse_args(map_args)
@@ -1892,6 +1928,11 @@ def three_batch_phase(by_path, dev, work, genome_bases, oracle):
     mapper = T.TurboMapper(index, cfg, device=dev, oracle=oracle)
     signals = load_all_read_signals(a.sig_dir, cfg.mapping.pa_lo,
                                     cfg.mapping.pa_hi)
+    batch = signals[:THREE_BATCH_B]
+    NC = mapper.upload_batch(batch)[0].shape[1]
+    blocks = len(T.head_blocks(THREE_BATCH_B * NC, mapper._head_block))
+    assert launches["peaks"] == launches["compress_keep"] == \
+        n_batches * blocks, "B1 and B2 are launched once a head block"
     # every timed pass replays the graphs and is held to an eager pass
     warm_set(mapper, signals, f"-t {HOST_THREADS}, read batch "
              f"{THREE_BATCH_B}", gate=True,
@@ -1911,8 +1952,6 @@ def three_batch_phase(by_path, dev, work, genome_bases, oracle):
 
     # the head alone (batch 0; the rounds are not running): the host's
     # staging of the pA into the pinned buffer, and all of prepare_batch
-    batch = signals[:THREE_BATCH_B]
-    NC = mapper.upload_batch(batch)[0].shape[1]
     stage_ms, prep_ms = [], []
     for _ in range(3):
         t0 = time.perf_counter()
@@ -1949,15 +1988,16 @@ def three_batch_phase(by_path, dev, work, genome_bases, oracle):
         log(f"  device {ms:10.3f} ms {cnt:6d}x  {name[:70]}")
     log_gaps("three batches", trace)
     ov = stream_overlap(trace, ("peaks_kernel", "compress_keep_kernel"),
-                        ("sweep_kernel", "chain_fused_kernel"), n_batches)
+                        ("sweep_kernel", "chain_fused_kernel"), n_batches,
+                        blocks)
     log("three batches, side stream (batch_features) against main stream "
         "(rounds), per batch: " + json.dumps(ov))
     for i, b in enumerate(ov["per_batch"]):
         log(f"  batch {i}: side-stream work {b['side_ms']:.3f} ms, of it "
             f"{b['overlap_ms']:.3f} ms at once with main-stream work; B1/B2 "
             f"at once with B3/B4 {b['named_overlap_ms']:.3f} ms")
-    assert [b["first_kernels"] for b in ov["per_batch"]] == [1] * n_batches, \
-        "the side stream's bursts are not one a batch"
+    assert [b["first_kernels"] for b in ov["per_batch"]] == \
+        [blocks] * n_batches, "the side stream's bursts are not one a batch"
     # this shows that the two streams do not serialise, not that a head
     # is hidden: warm_set's walls say that
     for i in range(1, n_batches):
@@ -2287,6 +2327,241 @@ def shard_phase(by_path, dev, work, reads, map_args, oracle):
     log(f"phase 11: {time.perf_counter() - t_phase:.1f} s")
 
 
+def long_reads(genome_bases, pa_lo, pa_hi):
+    """Phase 12's reads: LONG_READS reads, each with its own length drawn
+    with numpy (seed SEED + 3) from a log-normal of median LONG_MEDIAN
+    bases and sigma LONG_SIGMA, clipped to LONG_CLIP; LONG_OFF of them
+    (named off_*) from a random genome of LONG_OFF_GENOME bases that is not
+    indexed, the rest from phase 4's genome.  Returns (the on-target
+    reads, the signals of all reads in order, their lengths in bases)."""
+    import numpy as np
+
+    from sigmap_tpu_torch.io.pore_model import make_synthetic_pore_model
+    from sigmap_tpu_torch.io.signals import ReadSignal, dac_to_pa
+    from sigmap_tpu_torch.synth import random_genome, simulate_read
+
+    pore = make_synthetic_pore_model(k=6, seed=0)
+    genome = random_genome(genome_bases, seed=SEED)
+    other = random_genome(LONG_OFF_GENOME, seed=SEED + 4)
+    rng = np.random.default_rng(SEED + 3)
+    n = LONG_READS
+    bases = np.clip(rng.lognormal(np.log(LONG_MEDIAN), LONG_SIGMA, n),
+                    *LONG_CLIP).astype(np.int64)
+    off = np.zeros(n, bool)
+    off[rng.choice(n, round(LONG_OFF * n), replace=False)] = True
+    reads = [simulate_read(pore, other if o else genome, rng,
+                           f"{'off' if o else 'read'}_{i:05d}", int(b))
+             for i, (b, o) in enumerate(zip(bases, off))]
+    signals = [ReadSignal(r.read_id, r.digitisation, r.range, r.offset,
+                          dac_to_pa(r.raw, r.digitisation, r.range, r.offset,
+                                    pa_lo, pa_hi))
+               for r in reads]
+    return [r for r, o in zip(reads, off) if not o], signals, bases
+
+
+def nan_equal(a, b):
+    """Tensors equal element for element, NaN where both are NaN."""
+    import torch
+
+    return (a.shape == b.shape and torch.equal(a.isnan(), b.isnan())
+            and torch.equal(a.nan_to_num(0.0), b.nan_to_num(0.0)))
+
+
+def head_block_tries(q, qoff, qscale, n_full, p, cfg, dev):
+    """The head of one batch (q [B, NC, Cs]) through head graphs of each
+    block size of HEAD_BLOCK_TRIES: its device ms (CUDA events, the median
+    of three after one warm-up) and ms a row, and its graphs' pools.
+    Returns {size: ms a row}."""
+    import torch
+
+    from sigmap_tpu_torch.mapping import turbo as T
+    from sigmap_tpu_torch.mapping.graphs import HeadGraph
+
+    B, NC, Cs = q.shape
+    rows = B * NC
+    args = (p, cfg.event, cfg.mapping.compress_delta)
+    per_row = {}
+    for size in HEAD_BLOCK_TRIES:
+        made: dict = {}
+
+        def run(sz, part):
+            if sz not in made:
+                made[sz] = HeadGraph(sz, Cs, *args, dev)
+            return made[sz].run(*part)
+
+        ms = cuda_ms(lambda: T.batch_features(q, qoff, qscale, n_full, *args,
+                                              size, run), 3)
+        per_row[size] = ms / rows
+        blocks = [sz for _, sz in T.head_blocks(rows, size)]
+        log(f"long reads: head block {size} rows at B={B}, NC={NC}: "
+            f"{ms:.3f} ms = {ms / rows * 1000:.4f} us a row; blocks "
+            f"{blocks}; pools "
+            + ", ".join(f"{g.name} {g.stats()['pool_mib']:.1f} MiB"
+                        for g in made.values()))
+        del made, run
+        torch.cuda.empty_cache()
+    top = max(HEAD_BLOCK_TRIES)
+    chosen = min(s for s in HEAD_BLOCK_TRIES
+                 if per_row[s] <= 1.1 * per_row[top])
+    log(f"long reads: the smallest head block within 10% of the largest's "
+        f"ms a row: {chosen} (the mapper's HEAD_ROWS: {T.HEAD_ROWS})")
+    return per_row
+
+
+def long_read_phase(by_path, dev, work, genome_bases, oracle):
+    """Phase 12: long mixed-length reads with off-target reads
+    (``long_reads``) on phase 4's index at the default TurboParams, read
+    batch LONG_BATCH, HOST_THREADS host threads, with the rescue oracle
+    `oracle` (None: built at first need): an eager pass, then
+    LONG_GRAPH_PASSES passes with the graphs whose records must equal it
+    apart from mt:; on-target reads scored like phase 4, off-target ones
+    mapped counted; the head's blocks and ms, and its ms at each of
+    HEAD_BLOCK_TRIES; then the bucket sweep: a batch of the same reads cut
+    to each chunk bucket, prepared with the graphs and held exactly to the
+    whole batch's head run eagerly in one block, and the head graphs'
+    pools after all ten buckets."""
+    import numpy as np
+    import torch
+
+    from sigmap_tpu_torch import LAUNCHES, reset_launches
+    from sigmap_tpu_torch.cli import build_parser, make_config
+    from sigmap_tpu_torch.index.build import SignalIndex
+    from sigmap_tpu_torch.io.signals import ReadSignal
+    from sigmap_tpu_torch.mapping import turbo as T
+
+    t_phase = time.perf_counter()
+    cfg = make_config(build_parser().parse_args([
+        "-m", "-r", os.path.join(work, "ref.fa"),
+        "-p", os.path.join(work, "pore.model"),
+        "-x", os.path.join(work, "idx"), "-s", os.path.join(work, "signals"),
+        "-o", os.path.join(work, "long.paf"),
+        "--read-batch", str(LONG_BATCH), "-t", str(HOST_THREADS)]))
+    m = cfg.mapping
+    Cs, B = m.chunk_size, LONG_BATCH
+    index = SignalIndex.load(os.path.join(work, "idx"))
+    t0 = time.perf_counter()
+    reads, signals, bases = long_reads(genome_bases, m.pa_lo, m.pa_hi)
+    n, n_on = len(signals), len(reads)
+    chunks = np.array([s.length // Cs for s in signals])
+    at_cap = int((chunks >= m.max_num_chunks).sum())
+    log(f"long reads: {n} reads, {n - n_on} off-target, {bases.min()}-"
+        f"{bases.max()} bases (median {np.median(bases):.0f}), median "
+        f"{np.median(chunks):.1f} chunks, {at_cap} reach the "
+        f"{m.max_num_chunks}-chunk cap; made in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    mapper = T.TurboMapper(index, cfg, device=dev, oracle=oracle)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    want = records_without_mt(eager_pass(mapper, signals))
+    log(f"long reads, eager pass: {time.perf_counter() - t0:.3f} s; "
+        + json.dumps(pass_waits(mapper.last_pass)))
+    names = ("peaks", "compress_keep", "sweep", "chain_fused")
+    blocks = T.head_blocks(B * T._nc_bucket(int(chunks.max()), m),
+                           mapper._head_block)
+    for i in range(LONG_GRAPH_PASSES):
+        reset_launches()
+        t0 = time.perf_counter()
+        recs = mapper.streaming_map(signals)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: LAUNCHES[k] for k in names}
+        if i == 0:
+            by_path["long_reads"] = dict(LAUNCHES)
+        lp = mapper.last_pass
+        rescued = set(lp["rescued"])
+        by_name = {r.read_name: ("+" if r.direction == 1 else "-",
+                                 r.fragment_start,
+                                 r.fragment_start + r.fragment_length)
+                   for r in recs if r.is_mapped}
+        mapped, correct = score_hits(by_name, reads)
+        off_mapped = sum(k.startswith("off_") for k in by_name)
+        off_rescued = sum(signals[j].read_id.startswith("off_")
+                          for j in rescued)
+        waits = pass_waits(lp)
+        same = records_without_mt(recs) == want
+        log(f"long reads, graphs, pass {i}: {wall:.3f} s = {n / wall:.3f} "
+            f"reads/s; on-target mapped {mapped}/{n_on}, correct "
+            f"{correct}/{n_on}; off-target mapped (false positives) "
+            f"{off_mapped}/{n - n_on}; {len(lp['round_host'])} rounds a "
+            f"batch; {at_cap} reads at the cap; overflow "
+            f"{len(lp['overflow'])}, rescued {len(rescued)} "
+            f"({off_rescued} off-target); rescue tail "
+            f"{waits['rescue_tail_ms']:.3f} ms; launches {launches}; "
+            f"records equal the eager pass's apart from mt: {same}; "
+            + json.dumps(waits))
+        assert same, "long reads: the graphs' records differ from eager"
+        assert correct >= 0.99 * n_on, \
+            f"long reads: only {correct}/{n_on} on-target reads correct"
+        assert all(launches[k] > 0 for k in names), launches
+        assert launches["peaks"] == launches["compress_keep"] == len(blocks), \
+            f"long reads: B1/B2 {launches} for {len(blocks)} head blocks"
+    log(f"long reads: device memory reserved at most "
+        f"{torch.cuda.max_memory_reserved() / 2**20:.1f} MiB")
+
+    # --- the head at B=2048, NC=30: its blocks and ms, and block sizes ------
+    q, qoff, qscale, nf_d, _ = mapper.upload_batch(signals[:B])
+    args = (mapper.p, cfg.event, m.compress_delta)
+    rows = q.shape[0] * q.shape[1]
+    head_ms = cuda_ms(lambda: T.batch_features(
+        q, qoff, qscale, nf_d, *args, mapper._head_block,
+        mapper._run_head_block), 3)
+    log(f"long reads: the head at B={B}, NC={q.shape[1]} ({rows} rows) in "
+        f"{len(blocks)} blocks {[sz for _, sz in blocks]}: {head_ms:.3f} ms "
+        f"= {head_ms / rows * 1000:.4f} us a row")
+    head_block_tries(q, qoff, qscale, nf_d, mapper.p, cfg, dev)
+    del q, qoff, qscale, nf_d
+    graph_log("long reads", mapper)
+
+    # --- the bucket sweep: every chunk bucket at B=2048 --------------------
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_reserved()
+    for NC in T._NC_BUCKETS:
+        cut = [ReadSignal(s.read_id, s.digitisation, s.range, s.offset,
+                          s.pa[:NC * Cs]) for s in signals[:B]]
+        prep = mapper.prepare_batch(cut)
+        q, qoff, qscale, nf_d, _ = mapper.upload_batch(cut)
+        assert q.shape[1] == NC, (q.shape, NC)
+        a, b = torch.cuda.Event(enable_timing=True), \
+            torch.cuda.Event(enable_timing=True)
+        a.record()
+        whole = T.batch_features(q, qoff, qscale, nf_d, *args, B * NC)
+        b.record()
+        torch.cuda.synchronize()
+        same = (nan_equal(prep.feats, whole[0])
+                and torch.equal(prep.counts, whole[1]))
+        peak = torch.cuda.max_memory_reserved()
+        ms = cuda_ms(lambda: T.batch_features(
+            q, qoff, qscale, nf_d, *args, mapper._head_block,
+            mapper._run_head_block), 3)
+        nb = len(T.head_blocks(B * NC, mapper._head_block))
+        log(f"long reads, bucket NC={NC}: {B * NC} rows, {nb} blocks, head "
+            f"{ms:.3f} ms with the graphs, {a.elapsed_time(b):.3f} ms eager "
+            f"in one block; equal to the one-block head: {same}; reserved "
+            f"at most {peak / 2**20:.1f} MiB so far")
+        assert same, f"long reads: the blocked head differs at NC={NC}"
+        del prep, q, qoff, qscale, nf_d, whole
+        torch.cuda.empty_cache()
+    heads = [s for s in mapper.graph_stats() if s["graph"].startswith("head")]
+    pools = sum(s["pool_mib"] for s in heads)
+    after = torch.cuda.memory_reserved()
+    mapper.close()
+    log(f"long reads: after all ten buckets {len(heads)} head graphs ("
+        + ", ".join(f"{s['graph']} {s['pool_mib']:.1f} MiB" for s in heads)
+        + f"), {pools:.1f} MiB of pools in all; memory reserved "
+        f"{before / 2**20:.1f} MiB before the sweep, {after / 2**20:.1f} "
+        "MiB after")
+    sizes = {mapper._head_block >> k
+             for k in range(mapper._head_block.bit_length())}
+    assert all(int(s["graph"].split()[1][5:]) in sizes for s in heads), heads
+    assert pools <= HEAD_POOL_LIMIT_MIB, \
+        f"long reads: head pools {pools:.1f} MiB"
+    del mapper, signals
+    torch.cuda.empty_cache()
+    log(f"phase 12: {time.perf_counter() - t_phase:.1f} s")
+
+
 def score_paf(path, reads):
     """(mapped, correct) against the simulation truth (bench.py accuracy)."""
     by_name = {}
@@ -2411,6 +2686,7 @@ def main():
     gpu_test_phase()
     three_batch_phase(by_path, dev, work, int(args.genome_mb * 1e6), oracle)
     shard_phase(by_path, dev, work, reads, map_args, oracle)
+    long_read_phase(by_path, dev, work, int(args.genome_mb * 1e6), oracle)
     del oracle
 
     print(json.dumps({"kernels": [

@@ -4,9 +4,10 @@ The port's counterpart of how the JAX package runs its main path: there a
 round is one compiled XLA program (``jax.jit(turbo_round)``,
 sigmap_tpu/mapping/turbo.py:296-333, over ``turbo_round_body`` at :159),
 the round's feature slice a jitted ``slice_chunk`` (:335) and a batch's head
-one jitted ``batch_features`` (:373-437).  Here each is a CUDA graph
-captured from the eager functions of ``mapping/turbo.py`` and replayed, so
-that a round's some 800 launches, or a head's few hundred, are one call:
+one jitted ``batch_features`` (:373-437) that scans its row blocks.  Here
+each is a CUDA graph captured from the eager functions of
+``mapping/turbo.py`` and replayed, so that a round's some 800 launches, or a
+head block's few hundred, are one call:
 
 * ``RoundGraph``: static inputs (this round's feature slice and counts,
   which take the place of ``slice_chunk``, and ``n_full``) and a static
@@ -17,11 +18,14 @@ that a round's some 800 launches, or a head's few hundred, are one call:
   the sweep's outputs and from the merged slots on, and the merge runs
   eagerly between them: gloo stages its collectives through the host,
   which no graph can hold.
-* ``HeadGraph``: ``batch_features`` (B1, B2 and their glue) of one (B, NC)
-  bucket.  Its outputs are cloned out after each replay, on the replay's
-  stream, so the next batch's replay never overwrites a batch whose rounds
-  still read them.  The quantization stays outside: it reads each read's
-  fit back to the host, as the JAX package keeps it out of its jitted head.
+* ``HeadGraph``: one row block of ``batch_features`` (``rows_features``:
+  B1, B2 and their glue) at one block shape.  A batch replays it once a
+  block (``turbo.head_blocks``), so the set of head graphs is fixed
+  whatever B and NC are.  Each replay's outputs are copied into the
+  batch's own tensors at once, on the replay's stream, so no replay
+  overwrites a batch whose rounds still read it.  The quantization stays
+  outside: it reads each read's fit back to the host, as the JAX package
+  keeps it out of its jitted head.
 
 A graph's first call runs its body eagerly (a real round or head, which
 also builds and loads the kernels and warms the allocator), then captures
@@ -40,7 +44,11 @@ on a high-priority stream of PyTorch's pool, which nothing else of the
 port takes (the side stream and NCCL's are normal priority), so no other
 thread's work can land in a capture.  Each graph has its own memory pool
 (the two halves of a split round share one, and always replay in the order
-they were captured): rounds and heads replay at once on two streams.
+they were captured): rounds and heads replay at once on two streams.  A
+pool's free blocks serve only captures on the stream that freed them, and
+each capture runs on a stream of its own, so a shared pool would not
+shrink the heads' memory; halving block sizes bound it instead, to twice
+one block's pool.
 
 A kernel wrapper called while its thread captures counts its launch in the
 capture's record (``_build.recording_launches``); the graph adds that
@@ -55,8 +63,8 @@ from dataclasses import dataclass
 import torch
 
 from .._build import add_launches, recording_launches
-from .turbo import (RoundSearch, RoundState, batch_features, init_round_state,
-                    merged, round_finish, round_search)
+from .turbo import (PAD_ROW, RoundSearch, RoundState, init_round_state,
+                    merged, round_finish, round_search, rows_features)
 
 
 @dataclass
@@ -226,36 +234,40 @@ class RoundGraph:
 
 
 class HeadGraph:
-    """``batch_features`` of one (B, NC) bucket on static buffers: ``run``
-    copies a batch's quantized chunks in and returns its features as
-    tensors of their own (turbo.py's ``batch_features`` outputs)."""
+    """``rows_features`` of one head block shape, R rows of Cs samples, on
+    static buffers.  ``run`` copies a block's n <= R rows in (rows of
+    length 0 past them) and returns the block's features in the graph's
+    static outputs, which its next run rewrites: ``batch_features`` copies
+    them into the batch's own tensors at once, on the same stream."""
 
-    def __init__(self, B: int, NC: int, Cs: int, p, ed_cfg,
-                 compress_delta: float, device):
+    def __init__(self, R: int, Cs: int, p, ed_cfg, compress_delta: float,
+                 device):
         dev = torch.device(device)
         self.device = dev
         self.args = (p, ed_cfg, compress_delta)
-        self.q = torch.zeros((B, NC, Cs), dtype=torch.int32, device=dev)
-        self.qoff = torch.zeros(B, dtype=torch.float32, device=dev)
-        self.qscale = torch.ones(B, dtype=torch.float32, device=dev)
-        self.n_full = torch.zeros(B, dtype=torch.int32, device=dev)
+        self.ins = (torch.zeros((R, Cs), dtype=torch.int32, device=dev),
+                    torch.zeros(R, dtype=torch.float32, device=dev),
+                    torch.ones(R, dtype=torch.float32, device=dev),
+                    torch.zeros(R, dtype=torch.int32, device=dev))
         self.parts: list[Captured] = []
         self._out = None
-        self.name = f"head B={B} NC={NC}"
+        self.name = f"head rows={R} Cs={Cs}"
 
     def _body(self):
-        return batch_features(self.q, self.qoff, self.qscale, self.n_full,
-                              *self.args)
+        return rows_features(*self.ins, *self.args)
 
-    def run(self, q, qoff, qscale, n_full):
-        """(feats [B, NC, F] f32, counts [B, NC] i32) of the batch, on the
-        current stream."""
-        for dst, src in ((self.q, q), (self.qoff, qoff),
-                         (self.qscale, qscale), (self.n_full, n_full)):
-            dst.copy_(src)
+    def run(self, q, qoff, qscale, clen):
+        """(feats [R, F] f32, counts [R] i32) of the block's rows (as
+        ``turbo.head_inputs`` gives them), on the current stream."""
+        n = q.shape[0]
+        for dst, src, pad in zip(self.ins, (q, qoff, qscale, clen),
+                                 PAD_ROW):
+            dst[:n].copy_(src)
+            if n < dst.shape[0]:
+                dst[n:].fill_(pad)
         if self.parts:
             self.parts[0].replay()
-            return tuple(t.clone() for t in self._out)
+            return self._out
         out = self._body()
         if self.device.type == "cuda":
             part, self._out = capture(self._body, self.device)

@@ -20,10 +20,12 @@ Smaller batches are prepared inline, one after another.  The tile store is
 built on the host (``SweepIndex.build_cached(materialize=True)``) and
 uploaded once.
 
-On a GPU each round and each batch's ``batch_features`` is the replay of a
-CUDA graph (``mapping/graphs.py``; ``TurboMapper._graphs``), as the JAX
-package runs them as jitted programs; a round splits at its merge hook
-into ``round_search`` and ``round_finish``.
+A batch's ``batch_features`` runs its B * NC chunk rows in blocks of at
+most ``HEAD_ROWS`` (``head_blocks``), so the head's device memory is one
+block's at every read length.  On a GPU each round and each head block is
+the replay of a CUDA graph (``mapping/graphs.py``; ``TurboMapper._graphs``),
+as the JAX package runs them as jitted programs; a round splits at its
+merge hook into ``round_search`` and ``round_finish``.
 """
 
 from __future__ import annotations
@@ -415,37 +417,108 @@ def turbo_round(store: TileStore, feats, counts_r, n_full, st: RoundState,
                         radius, dim, chain_cfg, m)
 
 
-def chunk_rows(q, qoff, qscale, n_full):
-    """Quantized chunks -> event-detector rows.
+# Chunk rows a head block.  ``batch_features`` runs a batch's B * NC chunk
+# rows in blocks of at most this many, so that the head's intermediates (two
+# [R, C] t-statistic rows, the f64 prefix sums, the [R, 2C] emissions) are
+# those of one block at every read length, as the JAX package's blocks of
+# EVENT_ROWS rows under jax.lax.scan are (turbo.py:349, :398-433).  The
+# size is chosen for the H100, not for compile sharing: the smallest whose
+# device ms a row at B=2048, NC=30 is within 10% of the largest tried
+# (chip_smoke.py phase 12; on an H100 the head's ms a row is flat from 4096
+# to 16384 rows, PERF.md §5).
+HEAD_ROWS = 4096
 
-    q [B, NC, Cs] i32 quantized samples, qoff/qscale [B] f32, n_full [B]
-    i32.  pa = (q + qoff) * qscale reproduces io.signals.dac_to_pa bit for
-    bit for DAC-derived reads.  Chunks past a read's n_full get length 0.
-    Returns (pa [B*NC, Cs] f32, clen [B*NC] i32)."""
+# a padding row of a short last block: length 0, identity affine
+PAD_ROW = (0, 0.0, 1.0, 0)
+
+
+def head_blocks(rows: int, block: int) -> list[tuple[int, int]]:
+    """The row blocks of a head of ``rows`` chunk rows, as (first row,
+    size) pairs.  Every block but the last has ``block`` rows; the last has
+    the fewest of block, block // 2, block // 4, ... rows that hold the
+    rows left (padded).  So whatever B and NC are, a head's blocks take
+    at most log2(block) + 1 sizes."""
+    out = []
+    for start in range(0, rows, block):
+        size = block
+        while size // 2 >= rows - start:
+            size //= 2
+        out.append((start, size))
+    return out
+
+
+def head_inputs(q, qoff, qscale, n_full):
+    """A batch's quantized chunks q [B, NC, Cs] i32, qoff/qscale [B] f32
+    and n_full [B] i32 as head rows: (q [B*NC, Cs], qoff [B*NC], qscale
+    [B*NC], clen [B*NC] i32), each read's affine on its NC rows (an
+    expand: no host round trip).  Chunks past a read's n_full get length
+    0."""
     B, NC, Cs = q.shape
     rows = B * NC
     chunk_ok = torch.arange(NC, device=q.device)[None, :] < n_full[:, None]
     clen = torch.where(chunk_ok, Cs, 0).to(torch.int32).reshape(rows)
-    # each read's affine on its NC rows (an expand: no host round trip)
-    qoff_r = qoff[:, None].expand(B, NC).reshape(rows, 1)
-    qscale_r = qscale[:, None].expand(B, NC).reshape(rows, 1)
-    pa = (q.reshape(rows, Cs).to(torch.float32) + qoff_r) * qscale_r
-    return pa, clen
+    qoff_r = qoff[:, None].expand(B, NC).reshape(rows)
+    qscale_r = qscale[:, None].expand(B, NC).reshape(rows)
+    return q.reshape(rows, Cs), qoff_r, qscale_r, clen
+
+
+def dequantize(q, qoff, qscale):
+    """pa [R, Cs] f32 = (q + qoff) * qscale of head rows, which reproduces
+    io.signals.dac_to_pa bit for bit for DAC-derived reads."""
+    return (q.to(torch.float32) + qoff[:, None]) * qscale[:, None]
+
+
+def padded_block(part, size: int):
+    """Head rows ``part`` (the first n <= size rows of each of
+    ``head_inputs``' tensors) padded to ``size`` rows of length 0."""
+    n = part[0].shape[0]
+    if n == size:
+        return tuple(part)
+    return tuple(torch.cat([t, torch.full((size - n, *t.shape[1:]), v,
+                                          dtype=t.dtype, device=t.device)])
+                 for t, v in zip(part, PAD_ROW))
+
+
+def rows_features(q, qoff, qscale, clen, p: TurboParams,
+                  ed_cfg: EventDetectorConfig, compress_delta: float):
+    """One head block (the JAX package's ``_features_rows``,
+    turbo.py:352-370): head rows -> (feats [R, F] f32, counts [R] i32).  A
+    row's features depend on its own samples, affine and length alone."""
+    return batch_generate_features(
+        dequantize(q, qoff, qscale), clen, cfg=ed_cfg,
+        max_events=p.max_events, max_features=p.max_features,
+        compress_delta=compress_delta,
+    )
 
 
 def batch_features(q, qoff, qscale, n_full, p: TurboParams,
-                   ed_cfg: EventDetectorConfig, compress_delta: float):
-    """Event-detect and compress all of a batch's chunks in one pass
-    (inputs as ``chunk_rows``).  Returns (feats [B, NC, F] f32, counts
-    [B, NC] i32)."""
+                   ed_cfg: EventDetectorConfig, compress_delta: float,
+                   block: int = HEAD_ROWS, run_block=None):
+    """Event-detect and compress all of a batch's chunks (inputs as
+    ``head_inputs``) in the row blocks of ``head_blocks(B * NC, block)``,
+    each block's features written into the batch's own outputs, so that
+    one block's intermediates are live at a time.  ``run_block(size,
+    part)`` runs a block of ``size`` rows on its n <= size rows ``part``
+    and returns (feats, counts) of at least n rows (default:
+    ``rows_features`` on the padded rows; the mapper passes its head
+    graphs).  Returns (feats [B, NC, F] f32, counts [B, NC] i32)."""
     B, NC, _ = q.shape
-    pa, clen = chunk_rows(q, qoff, qscale, n_full)
-    feats, counts = batch_generate_features(
-        pa, clen, cfg=ed_cfg, max_events=p.max_events,
-        max_features=p.max_features, compress_delta=compress_delta,
-    )
-    F = feats.shape[-1]
-    return feats.reshape(B, NC, F), counts.reshape(B, NC)
+    R = B * NC
+    rows = head_inputs(q, qoff, qscale, n_full)
+    feats = torch.empty((R, p.max_features), dtype=torch.float32,
+                        device=q.device)
+    counts = torch.empty(R, dtype=torch.int32, device=q.device)
+    for start, size in head_blocks(R, block):
+        part = [t[start: start + size] for t in rows]
+        n = part[0].shape[0]
+        if run_block is None:
+            f, c = rows_features(*padded_block(part, size), p, ed_cfg,
+                                 compress_delta)
+        else:
+            f, c = run_block(size, part)
+        feats[start: start + n] = f[:n]
+        counts[start: start + n] = c[:n]
+    return feats.reshape(B, NC, -1), counts.reshape(B, NC)
 
 
 def stage_batch(batch, B, NC, Cs, max_chunks, pin: bool = False):
@@ -516,6 +589,13 @@ OVERLAP_MIN_BATCH = 2048
 # Chunk-count buckets of the reference mapper (turbo.py:715).  Kept because
 # the fallback quantization's min/max window depends on NC.
 _NC_BUCKETS = (1, 2, 3, 4, 6, 8, 12, 16, 24, 30)
+
+
+def _nc_bucket(nc_raw: int, m: MappingConfig) -> int:
+    """The chunk bucket of a batch whose longest read has nc_raw full
+    chunks."""
+    return next((nc for nc in _NC_BUCKETS
+                 if nc >= nc_raw or nc >= m.max_num_chunks), _NC_BUCKETS[-1])
 
 
 @dataclass
@@ -636,6 +716,9 @@ class TurboMapper:
     # buffers without a capture
     _graphs = True
 
+    # chunk rows a head block (batch_features); a test may set a small one
+    _head_block = HEAD_ROWS
+
     def _round_graph(self, B: int, F: int):
         """The round graph of batch shape (B, F), made at its first use."""
         from .graphs import RoundGraph
@@ -651,17 +734,23 @@ class TurboMapper:
                                                      split=split)
         return g
 
-    def _head_graph(self, shape: tuple):
-        """The head graph of quantized chunks q of ``shape`` (B, NC, Cs),
-        made at its first use."""
+    def _head_graph(self, R: int, Cs: int):
+        """The head graph of row blocks of R rows of Cs samples, made at
+        its first use.  Block sizes halve (``head_blocks``), so a mapper's
+        head graphs hold at most twice one full block's pool."""
         from .graphs import HeadGraph
 
         args = (self.p, self.cfg.event, self.cfg.mapping.compress_delta)
-        key = (*shape, *args)
+        key = (R, Cs, *args)
         g = self._head_graphs.get(key)
         if g is None:
-            g = self._head_graphs[key] = HeadGraph(*shape, *args, self.device)
+            g = self._head_graphs[key] = HeadGraph(R, Cs, *args, self.device)
         return g
+
+    def _run_head_block(self, size: int, part):
+        """One row block of a batch's head as a replay of its head graph
+        (``batch_features``' ``run_block``)."""
+        return self._head_graph(size, part[0].shape[1]).run(*part)
 
     def graph_stats(self) -> list[dict]:
         """Each graph of this mapper: its captures, replays, capture ms,
@@ -744,11 +833,8 @@ class TurboMapper:
         m = self.cfg.mapping
         B = self.cfg.runtime.read_batch
         Cs = m.chunk_size
-        nc_raw = max(1, max((min(s.length // Cs, m.max_num_chunks)
-                             for s in batch), default=1))
-        NC = next((nc for nc in _NC_BUCKETS
-                   if nc >= nc_raw or nc >= m.max_num_chunks),
-                  _NC_BUCKETS[-1])
+        NC = _nc_bucket(max(1, max((min(s.length // Cs, m.max_num_chunks)
+                                    for s in batch), default=1)), m)
         pa, L, scale, off, n_full = stage_batch(
             batch, B, NC, Cs, m.max_num_chunks,
             pin=self.device.type == "cuda")
@@ -759,22 +845,20 @@ class TurboMapper:
 
     def prepare_batch(self, batch: list[ReadSignal],
                       stream=None) -> PreparedBatch:
-        """Upload, quantize and event-detect one batch (``batch_features``:
-        kernels B1 and B2, turbo.py:698-740), the device work on ``stream``
-        (None: the calling thread's current stream).  On the prepare thread
-        with the side stream this is batch N+1's head, which runs while
-        batch N's rounds do."""
+        """Upload, quantize and event-detect one batch (``batch_features``
+        in row blocks of ``_head_block``: kernels B1 and B2 once a block,
+        turbo.py:698-740), the device work on ``stream`` (None: the
+        calling thread's current stream).  On the prepare thread with the
+        side stream this is batch N+1's head, which runs while batch N's
+        rounds do."""
         m = self.cfg.mapping
         with _on_stream(self.device, stream):
             qd, qoff, qscale, n_full_d, n_full = self.upload_batch(batch)
-            if self._graphs:
-                feats, counts = self._head_graph(tuple(qd.shape)).run(
-                    qd, qoff, qscale, n_full_d)
-            else:
-                feats, counts = batch_features(
-                    qd, qoff, qscale, n_full_d, self.p, self.cfg.event,
-                    m.compress_delta,
-                )
+            feats, counts = batch_features(
+                qd, qoff, qscale, n_full_d, self.p, self.cfg.event,
+                m.compress_delta, self._head_block,
+                self._run_head_block if self._graphs else None,
+            )
             event = None
             if self.device.type == "cuda":
                 event = torch.cuda.Event()

@@ -3,6 +3,7 @@
 import dataclasses
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -12,7 +13,7 @@ from sigmap_tpu.index.build import build_index
 from sigmap_tpu.io.fasta import ReferenceSequence
 from sigmap_tpu.io.pore_model import make_synthetic_pore_model
 from sigmap_tpu.io.signals import ReadSignal, dac_to_pa
-from sigmap_tpu.synth import random_genome, simulate_reads
+from sigmap_tpu.synth import random_genome, simulate_read, simulate_reads
 from sigmap_tpu_torch import _build
 
 # the suite runs several workers side by side: keep each one's intra-op
@@ -61,3 +62,42 @@ def workload():
     cfg = dataclasses.replace(
         cfg, runtime=dataclasses.replace(cfg.runtime, read_batch=32))
     return cfg, idx, reads, signals
+
+
+# the mixed-length workload: reads of 500-3000 bases, some of a genome
+# that is not indexed, at a chunk cap that most reads pass
+MIXED_ON, MIXED_OFF = 40, 8
+MIXED_CAP = 3
+MIXED_BATCH = 16
+
+
+def _signal(r):
+    return ReadSignal(r.read_id, r.digitisation, r.range, r.offset,
+                      dac_to_pa(r.raw, r.digitisation, r.range, r.offset))
+
+
+@pytest.fixture(scope="module")
+def mixed_workload(workload):
+    """The 200 kb workload's index with MIXED_ON reads of its genome and
+    MIXED_OFF off-target reads (named ``off_*``) of a 50 kb random genome
+    that is not indexed, in a shuffled order; each read's length drawn with
+    numpy, uniform in 500-3000 bases; max_num_chunks lowered to MIXED_CAP
+    (reads from ~1,350 bases pass it), read batch MIXED_BATCH.  Returns
+    (cfg, idx, on-target reads, signals)."""
+    cfg, idx, _, _ = workload
+    pore = make_synthetic_pore_model(k=6, seed=0)
+    genome = random_genome(200_000, seed=11)
+    other = random_genome(50_000, seed=12)
+    rng = np.random.default_rng(7)
+    lengths = rng.integers(500, 3001, MIXED_ON + MIXED_OFF)
+    reads = [simulate_read(pore, genome if i < MIXED_ON else other, rng,
+                           f"{'read' if i < MIXED_ON else 'off'}_{i:03d}",
+                           int(n))
+             for i, n in enumerate(lengths)]
+    order = rng.permutation(len(reads))
+    signals = [_signal(reads[i]) for i in order]
+    cfg = dataclasses.replace(
+        cfg, mapping=dataclasses.replace(cfg.mapping,
+                                         max_num_chunks=MIXED_CAP),
+        runtime=dataclasses.replace(cfg.runtime, read_batch=MIXED_BATCH))
+    return cfg, idx, reads[:MIXED_ON], signals

@@ -366,8 +366,9 @@ def test_graph_replays_add_their_captured_launches(driver_setup,
                                                    cuda_device):
     """A graph's capture launches nothing and counts nothing; each replay
     adds to LAUNCHES the launches its capture recorded: B3 and B4 once a
-    round, B1 and B2 once a head.  The first call of each graph runs its
-    body eagerly, and its launches count as they happen."""
+    round, B1 and B2 once a head block (a batch's 12 chunk rows in three
+    head blocks of 4, one head graph).  The first call of each graph runs
+    its body eagerly, and its launches count as they happen."""
     from sigmap_tpu_torch import _build
     from sigmap_tpu_torch.config import RuntimeConfig, SigmapConfig
     from sigmap_tpu_torch.mapping import turbo as T
@@ -377,39 +378,89 @@ def test_graph_replays_add_their_captured_launches(driver_setup,
     mapper = T.TurboMapper(idx, SigmapConfig(runtime=RuntimeConfig(
         read_batch=B)), T.TurboParams(S=256, K=16, RING=64, TILE=256),
         device=cuda_device)
+    mapper._head_block = 4
     names = ("peaks", "compress_keep", "sweep", "chain_fused")
     try:
-        qd, qoff, qscale, n_full_d, _ = mapper.upload_batch(signals[:B])
-        head = mapper._head_graph(tuple(qd.shape))
+        NC = mapper.upload_batch(signals[:B])[0].shape[1]
+        blocks = len(T.head_blocks(B * NC, 4))
+        assert (NC, blocks) == (3, 3)
         graph = None
         for call in range(3):
             before = {k: LAUNCHES[k] for k in names}
-            feats, counts = head.run(qd, qoff, qscale, n_full_d)
+            prep = mapper.prepare_batch(signals[:B])
+            feats, counts = prep.feats, prep.counts
             if graph is None:
                 graph = mapper._round_graph(B, feats.shape[-1])
-                graph.start(n_full_d)
+                graph.start(prep.n_full_d)
             graph.run(feats[:, 0], counts[:, 0])
             torch.cuda.synchronize()
             grew = {k: LAUNCHES[k] - before[k] for k in names}
-            assert grew == dict(peaks=1, compress_keep=1, sweep=1,
+            assert grew == dict(peaks=blocks, compress_keep=blocks, sweep=1,
                                 chain_fused=1), (call, grew)
+        (head,) = mapper._head_graphs.values()
         assert head.parts[0].launches == dict(peaks=1, compress_keep=1)
         assert graph.parts[0].launches == dict(sweep=1, chain_fused=1)
-        assert head.parts[0].replays == graph.parts[0].replays == 2
+        # the head graph's first block ran eagerly, every later one replays
+        assert head.parts[0].replays == 3 * blocks - 1
+        assert graph.parts[0].replays == 2
         assert getattr(_build._capture, "launches", None) is None
     finally:
         mapper.close()
 
 
+def test_head_memory_does_not_grow_with_chunks(driver_setup, cuda_device):
+    """The batch head in blocks of 8 rows at B=4 through one mapper's head
+    graphs at NC 1, 2, 4, 8 and 16 (4 to 64 rows): it equals the whole
+    batch's head run eagerly, exactly (NaN where both are NaN), and from
+    NC 2 on the head graphs are the same two (blocks of 4 and 8) with the
+    same pools."""
+    from sigmap_tpu_torch.config import RuntimeConfig, SigmapConfig
+    from sigmap_tpu_torch.mapping import turbo as T
+
+    B, Cs = 4, 4000
+    cfg = SigmapConfig(runtime=RuntimeConfig(read_batch=B))
+    mapper = T.TurboMapper(driver_setup[0], cfg, T.TurboParams(S=256, K=16,
+                                                             RING=64,
+                                                             TILE=256),
+                           device=cuda_device)
+    mapper.close()
+    mapper._head_block = 8
+    args = (mapper.p, cfg.event, cfg.mapping.compress_delta)
+    rng = np.random.default_rng(3)
+    pools = []
+    for NC in (1, 2, 4, 8, 16):
+        q = torch.from_numpy(rng.integers(
+            20000, 40000, (B, NC, Cs)).astype(np.int32)).to(cuda_device)
+        qoff = torch.from_numpy(rng.uniform(-2000, 0, B).astype(
+            np.float32)).to(cuda_device)
+        qscale = torch.full((B,), 0.1, device=cuda_device)
+        n_full = torch.from_numpy(rng.integers(0, NC + 1, B).astype(
+            np.int32)).to(cuda_device)
+        ins = (q, qoff, qscale, n_full)
+        for _ in range(2):          # an eager first block, then replays
+            got = T.batch_features(*ins, *args, block=8,
+                                   run_block=mapper._run_head_block)
+        want = T.batch_features(*ins, *args, block=B * NC)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=0, atol=0, equal_nan=True)
+        pools.append(sorted((g.name, g.stats()["pool_mib"])
+                            for g in mapper._head_graphs.values()))
+    print(json.dumps(pools))
+    assert [g for g, _ in pools[1]] == [f"head rows=4 Cs={Cs}",
+                                        f"head rows=8 Cs={Cs}"]
+    assert all(p == pools[1] for p in pools[1:])
+
+
 # a body that reads a device value to the host, captured two ways: by
-# graphs.capture itself, and by a head graph whose batch_features does so
+# graphs.capture itself, and by a head graph whose rows_features does so
 HOST_READ_IN_CAPTURE = {
     "capture": """
 x = torch.ones(4, device=dev)
 G.capture(lambda: (x * 2).sum().item(), dev)
 """,
     "head_graph": """
-eager = G.batch_features
+eager = G.rows_features
 
 
 def reads_back(*args):
@@ -418,12 +469,11 @@ def reads_back(*args):
     return out
 
 
-G.batch_features = reads_back
-head = G.HeadGraph(4, 1, 4000, T.TurboParams(), EventDetectorConfig(), 0.1,
-                   dev)
-q = torch.randint(20000, 40000, (4, 1, 4000), dtype=torch.int32).to(dev)
+G.rows_features = reads_back
+head = G.HeadGraph(4, 4000, T.TurboParams(), EventDetectorConfig(), 0.1, dev)
+q = torch.randint(20000, 40000, (4, 4000), dtype=torch.int32).to(dev)
 args = (q, torch.zeros(4, device=dev), torch.full((4,), 0.01, device=dev),
-        torch.ones(4, dtype=torch.int32, device=dev))
+        torch.full((4,), 4000, dtype=torch.int32, device=dev))
 try:
     head.run(*args)
 finally:

@@ -9,8 +9,10 @@ K=16, RING=64, TILE=256).
   tests/test_torch_round.py holds the port's round: integers exact, f32 to
   RTOL, a read differing only where one of its seeds has a window within
   EPS of the radius.
-* A head graph's outputs are the batch's own: a later batch of the same or
-  another bucket does not overwrite them.
+* The head runs in row blocks, one head graph a block shape: a batch's
+  outputs are its own (a later batch of the same or another bucket does
+  not overwrite them), and batches of three chunk buckets leave one graph
+  a block shape, whatever B and NC are.
 * The mapper keys its graphs on what fixes their shapes and constants, and
   streaming_map through the graphs gives the eager path's records apart
   from mt:.
@@ -28,7 +30,9 @@ import torch
 from sigmap_tpu.index.sweep import SweepIndex
 from sigmap_tpu_torch.mapping import turbo as port
 from sigmap_tpu_torch.mapping.graphs import HeadGraph, RoundGraph
-from _torch_util import PARAMS, workload  # noqa: F401 - fixture
+from _torch_util import (  # noqa: F401 - fixtures
+    MIXED_CAP, PARAMS, mixed_workload, workload,
+)
 from test_torch_round import RTOL, _boundary_reads
 
 
@@ -110,16 +114,20 @@ def test_round_graph_matches_eager_and_jax(workload, split):
 
 
 def test_head_graphs_keep_a_batch_that_is_still_read(workload):
-    """Batches of two (B, NC) buckets in turn, A1, B, A2: each run returns
+    """Batches of two (B, NC) buckets in turn, A1, B, A2, through head
+    graphs of 4-row blocks (A: one block, B: two): each run returns
     batch_features of its own inputs, and A1's outputs, still held, are
-    neither rewritten nor shared by the later runs."""
+    neither rewritten nor shared by the later runs or the graphs."""
     cfg, _, _, _ = workload
     p = port.TurboParams(**PARAMS)
+    args = (p, cfg.event, cfg.mapping.compress_delta)
     rng = np.random.default_rng(0)
     B, Cs = 4, 4000
-    graphs = {NC: HeadGraph(B, NC, Cs, p, cfg.event,
-                            cfg.mapping.compress_delta, "cpu")
-              for NC in (1, 2)}
+    graphs: dict = {}
+
+    def run_block(size, part):
+        g = graphs.setdefault(size, HeadGraph(size, Cs, *args, "cpu"))
+        return g.run(*part)
 
     def batch(NC):
         q = torch.from_numpy(
@@ -132,21 +140,23 @@ def test_head_graphs_keep_a_batch_that_is_still_read(workload):
     runs = []
     for NC in (1, 2, 1):
         ins = batch(NC)
-        out = graphs[NC].run(*ins)
-        want = port.batch_features(*ins, p, cfg.event,
-                                   cfg.mapping.compress_delta)
+        out = port.batch_features(*ins, *args, block=4, run_block=run_block)
+        want = port.batch_features(*ins, *args, block=B * NC)
         for g, w in zip(out, want):
             # exactly (a read with no chunk has NaN features, as in the
             # JAX package)
             torch.testing.assert_close(g, w, rtol=0, atol=0, equal_nan=True)
         runs.append((out, tuple(t.clone() for t in out)))
+    assert list(graphs) == [4]
     (first, kept), _, (last, _) = runs
     for t, k in zip(first, kept):
         torch.testing.assert_close(t, k, rtol=0, atol=0, equal_nan=True)
     for a, b in zip(first, last):
         assert a.data_ptr() != b.data_ptr()
-    for g in graphs.values():
-        assert all(t.data_ptr() != g.q.data_ptr() for t in first)
+    g = graphs[4]
+    static = [t.data_ptr() for t in g.ins]
+    static += [t.data_ptr() for t in g._out or ()]
+    assert all(t.data_ptr() not in static for t in first)
 
 
 def test_graph_key_change_makes_a_new_graph(workload):
@@ -167,14 +177,52 @@ def test_graph_key_change_makes_a_new_graph(workload):
         assert g2 is not g and g2.state.carry[0].shape == (32, 32)
         mapper._merge_matches = _identity
         assert mapper._round_graph(32, 1024).split
-        h = mapper._head_graph((32, 2, 4000))
-        assert mapper._head_graph((32, 2, 4000)) is h
-        assert mapper._head_graph((32, 3, 4000)) is not h
+        h = mapper._head_graph(64, 4000)
+        assert mapper._head_graph(64, 4000) is h
+        assert mapper._head_graph(32, 4000) is not h
+        assert h.ins[0].shape == (64, 4000)
         assert len(mapper.graph_stats()) == 6
         assert all(s["captures"] == 0 and s["replays"] == 0
                    for s in mapper.graph_stats())
     finally:
         mapper.close()
+
+
+def test_head_graphs_are_one_per_block_shape(mixed_workload):
+    """Batches of three chunk buckets (NC 1, 2 and 3 at read batch 4, the
+    mixed workload's on-target reads) in head blocks of 8 rows (rows 4, 8,
+    12: blocks of 4; 8; 8 and 4) through the graphs' static buffers leave
+    one head graph a block shape, whatever the bucket, with the eager
+    path's records apart from mt:."""
+    cfg, idx, _, signals = mixed_workload
+    Cs = cfg.mapping.chunk_size
+    by_nc = {nc: [s for s in signals if s.read_id.startswith("read_")
+                  and min(s.length // Cs, MIXED_CAP) == nc][:4]
+             for nc in (1, 2, MIXED_CAP)}
+    batches = [s for nc in (1, 2, MIXED_CAP) for s in by_nc[nc]]
+    assert all(len(b) == 4 for b in by_nc.values())
+    cfg = dataclasses.replace(cfg, runtime=dataclasses.replace(
+        cfg.runtime, read_batch=4))
+    mapper = port.TurboMapper(idx, cfg, port.TurboParams(**PARAMS),
+                              device="cpu")
+    mapper._head_block = 8
+    try:
+        eager = mapper.streaming_map(batches)
+        mapper._graphs = True
+        graphs = mapper.streaming_map(batches)
+        stats = mapper.graph_stats()
+    finally:
+        mapper.close()
+    assert _without_mt(graphs) == _without_mt(eager)
+    heads = [s for s in stats if s["graph"].startswith("head")]
+    assert sorted(s["graph"] for s in heads) == [f"head rows=4 Cs={Cs}",
+                                                 f"head rows=8 Cs={Cs}"]
+
+
+def _without_mt(recs):
+    return [dataclasses.replace(r, tags="\t".join(
+        t for t in r.tags.split("\t") if not t.startswith("mt:")))
+        for r in recs]
 
 
 def test_streaming_map_through_graphs_equals_eager(workload):
@@ -194,12 +242,6 @@ def test_streaming_map_through_graphs_equals_eager(workload):
     finally:
         mapper.close()
     assert len(graphs) == len(signals)
-
-    def without_mt(recs):
-        return [dataclasses.replace(r, tags="\t".join(
-            t for t in r.tags.split("\t") if not t.startswith("mt:")))
-            for r in recs]
-
-    assert without_mt(graphs) == without_mt(eager)
+    assert _without_mt(graphs) == _without_mt(eager)
     assert len(mapper.last_pass["round_host"]) >= 4
     assert all(0 <= a <= b for a, b in mapper.last_pass["round_host"])

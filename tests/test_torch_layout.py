@@ -269,12 +269,13 @@ def test_chip_smoke_host_gaps_names_the_ops_in_each_gap(tmp_path):
     assert gaps[2]["host_ops"] == [] and gaps[2]["host_op_share"] == 0.0
 
 
-def _stream_trace(tmp_path, side_stream=3, close_heads=False):
+def _stream_trace(tmp_path, side_stream=3, close_heads=False, blocks=1):
     """A chrome trace of three batches: the side stream's heads (a copy,
     B1, B2, glue) against the main stream's rounds (B3, B4, glue).  With
     close_heads, batch 1's head follows batch 0's at once and its glue
     comes long after its B2, so the stream's two longest gaps both lie
-    between batch 1's B1 and batch 2's."""
+    between batch 1's B1 and batch 2's.  With blocks=2 each head's B1 is
+    two kernels back to back (a head of two row blocks)."""
     import json
 
     def k(name, ts, end, stream, cat="kernel"):
@@ -307,6 +308,11 @@ def _stream_trace(tmp_path, side_stream=3, close_heads=False):
           k("compress_keep_kernel(float const*)", 430, 440, s),
           dict(ph="X", cat="cpu_op", name="aten::add", ts=0, dur=900),
           dict(ph="i", cat="kernel", name="peaks_kernel", ts=5)]
+    if blocks == 2:
+        ev = [half for e in ev for half in (
+            [dict(e, dur=e["dur"] / 2),
+             dict(e, ts=e["ts"] + e["dur"] / 2, dur=e["dur"] / 2)]
+            if e["ph"] == "X" and e["name"].startswith("peaks") else [e])]
     path = tmp_path / "trace.json"
     path.write_text(json.dumps({"traceEvents": ev}))
     return str(path)
@@ -336,6 +342,29 @@ def test_chip_smoke_stream_overlap_per_batch(tmp_path, close_heads, want):
         assert b["overlap_ms"] == pytest.approx(both)
         assert b["named_overlap_ms"] == pytest.approx(named)
         assert b["first_kernels"] == 1
+
+
+@pytest.mark.parametrize("close_heads", [False, True])
+def test_chip_smoke_stream_overlap_two_blocks_a_batch(tmp_path,
+                                                      close_heads):
+    """A head of two row blocks runs two B1 kernels: the bursts are cut
+    between one batch's last B1 and the next batch's first, and measure
+    what they measure with one B1 a batch."""
+    sys.path.insert(0, ROOT)
+    from chip_smoke import stream_overlap
+
+    names = (("peaks_kernel", "compress_keep_kernel"),
+             ("sweep_kernel", "chain_fused_kernel"))
+    want = stream_overlap(_stream_trace(tmp_path, close_heads=close_heads),
+                          *names, 3)
+    got = stream_overlap(_stream_trace(tmp_path, close_heads=close_heads,
+                                       blocks=2), *names, 3, 2)
+    for g, w in zip(got["per_batch"], want["per_batch"]):
+        assert g["first_kernels"] == 2
+        for k in ("side_ms", "overlap_ms", "named_overlap_ms"):
+            assert g[k] == pytest.approx(w[k])
+    with pytest.raises(AssertionError, match="not one a batch: 6 peaks"):
+        stream_overlap(_stream_trace(tmp_path, blocks=2), *names, 3)
 
 
 def test_chip_smoke_stream_overlap_fails_on_one_stream(tmp_path):

@@ -9,6 +9,12 @@ workload of tests/test_turbo.py (B=32, S=256, K=16, RING=64, TILE=256).
   within RTOL, and ad (mean d^2 over the best chain, a sum of ~70 f32
   distances each rounded differently) within AD_RTOL; measured maxima on
   this workload are 8e-6 and 1.2e-4.
+* mixed lengths: the same on reads of 500-3000 bases, some of a genome
+  that is not indexed, at a max_num_chunks that most of them pass, so the
+  rounds run to the cap and the output takes its loop-exhaustion branch.
+* the batch head in row blocks equals the whole batch's head exactly, and
+  the JAX package's batch_features (counts and NaNs exactly, features to
+  FEAT_ATOL: XLA's CPU backend fuses multiply-adds in the z-scores).
 * cross-batch overlap: the four batches give the same records, bit for bit
   apart from mt:, with batch N+1 prepared on the prepare thread while
   batch N maps (set on: these batches are below OVERLAP_MIN_BATCH) and
@@ -22,10 +28,14 @@ import time
 
 import numpy as np
 import pytest
+import torch
 
 from sigmap_tpu_torch.mapping import turbo as port
 from _torch_gpu_util import quantize_reads
-from _torch_util import PARAMS, workload  # noqa: F401 - fixture
+from _torch_util import (  # noqa: F401 - fixtures
+    MIXED_CAP, PARAMS, jax_native_from_source, mixed_workload, workload,
+)
+from test_torch_events import FEAT_ATOL
 
 PREPARE_THREAD = "sigmap-turbo-prepare"
 
@@ -63,14 +73,17 @@ def overlapped(workload):
     mapper.close()
 
 
-def test_port_streaming_map_matches_jax(workload, overlapped):
+def _jax_records(cfg, idx, signals):
     from sigmap_tpu.mapping.turbo import TurboMapper, TurboParams
 
-    cfg, idx, reads, signals = workload
-    got = overlapped[1]
-    want = TurboMapper(idx, cfg, TurboParams(peaks_impl="scan", **PARAMS)
+    return TurboMapper(idx, cfg, TurboParams(peaks_impl="scan", **PARAMS)
                        ).streaming_map(signals)
-    assert len(got) == len(want) == len(signals)
+
+
+def _assert_records_match(got, want):
+    """Every field and integer tag equal, float tags to RTOL (ad to
+    AD_RTOL), mt: aside."""
+    assert len(got) == len(want)
     for g, w in zip(got, want):
         gd, wd = dataclasses.asdict(g), dataclasses.asdict(w)
         gt, wt = _tags(g), _tags(w)
@@ -87,8 +100,11 @@ def test_port_streaming_map_matches_jax(workload, overlapped):
                 assert abs(float(gv) - float(wv)) <= tol + 2e-6, (k, gv, wv)
             else:
                 assert gv == wv, (g.read_name, k, gv, wv)
-    by_name = {r.read_name: r for r in got}
-    correct = sum(
+
+
+def _correct(records, reads):
+    by_name = {r.read_name: r for r in records}
+    return sum(
         1 for r in reads
         if by_name[r.read_id].is_mapped
         and by_name[r.read_id].direction == r.strand
@@ -96,7 +112,100 @@ def test_port_streaming_map_matches_jax(workload, overlapped):
         and by_name[r.read_id].fragment_start
         + by_name[r.read_id].fragment_length > r.ref_start
     )
-    assert correct >= len(reads) - 2
+
+
+def test_port_streaming_map_matches_jax(workload, overlapped):
+    cfg, idx, reads, signals = workload
+    got = overlapped[1]
+    want = _jax_records(cfg, idx, signals)
+    assert len(got) == len(signals)
+    _assert_records_match(got, want)
+    assert _correct(got, reads) >= len(reads) - 2
+
+
+def test_port_maps_mixed_lengths_as_jax(mixed_workload,
+                                        jax_native_from_source):
+    """Reads of 500-3000 bases (1-6 chunks) at max_num_chunks 3, some off
+    the index: batches of three chunk buckets, reads whose rounds run to
+    the cap, and rescues of the off-target reads that overflow (both
+    packages' native cores built from one source)."""
+    cfg, idx, reads, signals = mixed_workload
+    Cs = cfg.mapping.chunk_size
+    n_full = [min(s.length // Cs, MIXED_CAP) for s in signals]
+    assert sorted(set(n_full)) == [1, 2, MIXED_CAP]
+    mapper = port.TurboMapper(idx, cfg, port.TurboParams(**PARAMS),
+                              device="cpu")
+    try:
+        got = mapper.streaming_map(signals)
+    finally:
+        mapper.close()
+    _assert_records_match(got, _jax_records(cfg, idx, signals))
+    # the cap was reached: off-target reads at n_full == max_num_chunks
+    # never stop and end on the loop-exhaustion branch (ci: the cap)
+    capped = [r for r, n in zip(got, n_full) if n == MIXED_CAP
+              and r.read_name.startswith("off_")]
+    assert any(_tags(r)["ci"] == f"i:{MIXED_CAP}" for r in capped)
+    assert mapper.last_pass["rescued"]
+    assert _correct(got, reads) >= len(reads) - 2
+
+
+def _head_inputs(B, NC, Cs, seed):
+    """A batch's quantized chunks (as mapping/turbo.py:head_inputs takes
+    them), reads with 0 to NC full chunks."""
+    rng = np.random.default_rng(seed)
+    return (rng.integers(20000, 40000, (B, NC, Cs)).astype(np.int32),
+            rng.uniform(-2000, 0, B).astype(np.float32),
+            np.full(B, 0.1, np.float32),
+            rng.integers(0, NC + 1, B).astype(np.int32))
+
+
+@pytest.mark.parametrize("B, NC", [(5, 1), (4, 4), (7, 2)],
+                         ids=["below", "at", "off"])
+def test_blocked_head_matches_whole_and_jax(workload, B, NC):
+    """batch_features in blocks of 8 rows (5 rows: one block of 8, padded;
+    16 rows: two blocks; 14 rows: a block of 8 and one of 8 padded) equals
+    it in one block of all the rows exactly, NaN where both are NaN (a
+    chunk of no samples), and the JAX package's batch_features."""
+    import jax.numpy as jnp
+    from sigmap_tpu.mapping import turbo as jt
+
+    cfg, _, _, _ = workload
+    p, ed, cd = port.TurboParams(**PARAMS), cfg.event, \
+        cfg.mapping.compress_delta
+    ins = _head_inputs(B, NC, 2000, seed=B)
+    t = [torch.from_numpy(x) for x in ins]
+    assert [s for _, s in port.head_blocks(B * NC, 8)] == {
+        5: [8], 16: [8, 8], 14: [8, 8]}[B * NC]
+    blocked = port.batch_features(*t, p, ed, cd, block=8)
+    whole = port.batch_features(*t, p, ed, cd, block=B * NC)
+    for g, w in zip(blocked, whole):
+        torch.testing.assert_close(g, w, rtol=0, atol=0, equal_nan=True)
+    jf, jc = (np.asarray(x) for x in jt.batch_features(
+        jnp.asarray(ins[0].astype(np.uint16)), *map(jnp.asarray, ins[1:]),
+        jt.TurboParams(peaks_impl="scan", **PARAMS), ed, cd))
+    f = blocked[0].numpy()
+    np.testing.assert_array_equal(blocked[1].numpy(), jc)
+    np.testing.assert_array_equal(np.isnan(f), np.isnan(jf))
+    assert np.isnan(f).any() and not np.isnan(f).all()
+    np.testing.assert_allclose(f, jf, rtol=0, atol=FEAT_ATOL)
+
+
+def test_head_blocks_take_a_fixed_set_of_sizes():
+    """Whatever the rows, blocks cover them in order with sizes block // 2^k,
+    all but the last of the full size, the last the fewest that hold what
+    is left."""
+    block = port.HEAD_ROWS
+    sizes = set()
+    for rows in (1, 2, 1000, 2048, 4096, 6144, 12288, 12289, 24576, 61440,
+                 2048 * 30 + 1):
+        blocks = port.head_blocks(rows, block)
+        assert [s for s, _ in blocks] == list(range(0, rows, block))
+        assert all(size == block for _, size in blocks[:-1])
+        start, size = blocks[-1]
+        assert size >= rows - start and (size == block
+                                         or size // 2 < rows - start)
+        sizes |= {size for _, size in blocks}
+    assert sizes <= {block >> k for k in range(block.bit_length())}
 
 
 def test_overlap_on_equals_off(workload, overlapped):
