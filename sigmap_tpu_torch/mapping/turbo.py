@@ -32,6 +32,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import itertools
 import sys
 import threading
 import time
@@ -50,6 +51,7 @@ from ..io.paf import ChainsSummary, PAFRecord, streaming_tags
 from ..io.signals import ReadSignal
 from ..ops.chain_fused import chain_fused, check_fits
 from ..signal.events import batch_generate_features
+from .spans import Span, new_pass, span
 from .sweep_search import SEED_PAD, sweep_round
 
 NEG = -1.0e30
@@ -643,13 +645,15 @@ class TurboMapper:
         self._oracle_lock = threading.Lock()
         self._oracle_kicked = False
         self._rescue_pool = (
-            ThreadPoolExecutor(max(1, config.runtime.num_threads))
+            ThreadPoolExecutor(max(1, config.runtime.num_threads),
+                               thread_name_prefix="sigmap-turbo-rescue")
             if self.p.rescue else None
         )
         self._rescue_futs: list = []
         self._ovf_warned = False
         self.n_rescued = 0          # reads re-mapped by the exact engine
         self.n_rescued_mapped = 0
+        self._pass_ids = itertools.count()   # last_pass["pass_id"]
         # the prepare thread (turbo.py:599) and, on a GPU, its side stream
         self._prep_pool = ThreadPoolExecutor(
             1, thread_name_prefix="sigmap-turbo-prepare")
@@ -680,18 +684,24 @@ class TurboMapper:
                 self._oracle = Oracle(self.index, self.cfg)
         return self._oracle
 
-    def _rescue_one(self, rid: int, s: ReadSignal, turbo_mt: float):
+    def _rescue_one(self, rid: int, s: ReadSignal, turbo_mt: float,
+                    stamps: dict, epilogue: Span):
+        """Re-map one read with the exact engine, on a rescue thread: span
+        rescue.read of the pass ``stamps``, a child of the ``epilogue``
+        that submitted it, with the thread's CPU time over it (``cpu_s``)."""
         from .records import streaming_record
 
-        t0 = time.perf_counter()
-        oracle = self._get_oracle()
-        chunk_idx_adj, num_events, chains, _stopped = oracle.streaming_read(
-            s.pa
-        )
-        mt = turbo_mt + (time.perf_counter() - t0) * 1000
+        with span(stamps, "rescue.read", epilogue.index,
+                  epilogue.batch) as sp:
+            cpu0 = time.thread_time()
+            oracle = self._get_oracle()
+            chunk_idx_adj, num_events, chains, _stopped = \
+                oracle.streaming_read(s.pa)
+            sp.numbers["cpu_s"] = time.thread_time() - cpu0
+            sp.close()
         return rid, streaming_record(
             self.index, self.cfg, rid, s.read_id, s.length, chunk_idx_adj,
-            num_events, chains, mt,
+            num_events, chains, turbo_mt + sp.s * 1000,
         )
 
     def close(self):
@@ -763,47 +773,41 @@ class TurboMapper:
         B = self.cfg.runtime.read_batch
         batches = [(base, signals[base: base + B])
                    for base in range(0, len(signals), B)]
-        # where the pass spent its time, on the host clock (perf_counter
-        # s): its start, each batch's rounds, each round's host time until
-        # its work was sent and until its host signal came back
-        # (round_host), and the wait for the rescues; and the reads
-        # (indices into signals) whose capacity overflowed (row 7 of rb_i)
-        # and those the exact engine re-mapped
-        self.last_pass = stamps = dict(start=time.perf_counter(), rounds=[],
-                                       round_host=[], rescues=None,
-                                       overflow=[], rescued=[])
-
-        def map_one(base, batch, prep):
-            t0 = time.perf_counter()
-            self._map_batch(batch, base, records, prep)
-            stamps["rounds"].append((t0, time.perf_counter()))
-
-        if not self._overlap_batches:
-            for base, batch in batches:
-                map_one(base, batch, self.prepare_batch(batch))
-        elif batches:
-            # batch N+1's head runs on the prepare thread, on the side
-            # stream, while batch N's rounds run here (turbo.py:663-676)
-            pending = self._prep_pool.submit(self.prepare_batch,
-                                             batches[0][1], self._side)
-            try:
-                for i, (base, batch) in enumerate(batches):
-                    fut, pending = pending, None
-                    prep = fut.result()
-                    if i + 1 < len(batches):
-                        pending = self._prep_pool.submit(
-                            self.prepare_batch, batches[i + 1][1], self._side)
-                    map_one(base, batch, prep)
-            except BaseException as e:
-                # the next batch's preparation ends before the error
-                # propagates
-                if pending is not None and pending.exception() is not None:
-                    e.add_note("the next batch's preparation failed too: "
-                               f"{pending.exception()!r}")
-                raise
-        t0 = time.perf_counter()
-        out = self._drain_rescues(records, len(signals))
-        stamps["rescues"] = (t0, time.perf_counter())
+        # where the pass spent its host time, as spans (mapping/spans.py),
+        # and the reads (indices into signals) whose capacity overflowed
+        # (row 7 of rb_i) and those the exact engine re-mapped
+        self.last_pass = stamps = new_pass(next(self._pass_ids))
+        with span(stamps, "map.pass", None, t0=stamps["start"]):
+            if not self._overlap_batches:
+                for bi, (base, batch) in enumerate(batches):
+                    self._map_batch(batch, base, records, self.prepare_batch(
+                        batch, None, stamps, bi))
+            elif batches:
+                # batch N+1's head runs on the prepare thread, on the side
+                # stream, while batch N's rounds run here (turbo.py:663-676)
+                pending = self._prep_pool.submit(
+                    self.prepare_batch, batches[0][1], self._side, stamps, 0)
+                try:
+                    for i, (base, batch) in enumerate(batches):
+                        fut, pending = pending, None
+                        with span(stamps, "head.wait", batch=i):
+                            prep = fut.result()
+                        if i + 1 < len(batches):
+                            pending = self._prep_pool.submit(
+                                self.prepare_batch, batches[i + 1][1],
+                                self._side, stamps, i + 1)
+                        self._map_batch(batch, base, records, prep)
+                except BaseException as e:
+                    # the next batch's preparation ends before the error
+                    # propagates
+                    if (pending is not None
+                            and pending.exception() is not None):
+                        e.add_note("the next batch's preparation failed "
+                                   f"too: {pending.exception()!r}")
+                    raise
+            with span(stamps, "rescue.drain") as drain:
+                out = self._drain_rescues(records, len(signals))
+            stamps["rescues"] = (drain.t0, drain.t1)
         return out
 
     def _drain_rescues(self, records: dict, n: int) -> list[PAFRecord]:
@@ -825,125 +829,151 @@ class TurboMapper:
             self._rescue_futs = []
         return [records[i] for i in range(n) if i in records]
 
-    def upload_batch(self, batch: list[ReadSignal]):
+    def upload_batch(self, batch: list[ReadSignal],
+                     stamps: dict | None = None, bi: int | None = None):
         """Copy one batch's pA to the device on the current stream (from a
         pinned buffer on a GPU) and quantize it there: (q [B, NC, Cs] i32,
         qoff [B] f32, qscale [B] f32, n_full [B] i32) on the device, and
-        n_full on the host."""
+        n_full on the host.  Spans head.stage and head.quantize of the pass
+        ``stamps`` (None: no pass), batch ``bi``."""
         m = self.cfg.mapping
         B = self.cfg.runtime.read_batch
         Cs = m.chunk_size
-        NC = _nc_bucket(max(1, max((min(s.length // Cs, m.max_num_chunks)
-                                    for s in batch), default=1)), m)
-        pa, L, scale, off, n_full = stage_batch(
-            batch, B, NC, Cs, m.max_num_chunks,
-            pin=self.device.type == "cuda")
-        q, qoff, qscale = quantize(pa.to(self.device, non_blocking=True),
-                                   L, scale, off)
-        return (q.reshape(B, NC, Cs), qoff, qscale,
-                torch.from_numpy(n_full).to(self.device), n_full)
+        with span(stamps, "head.stage", batch=bi):
+            NC = _nc_bucket(max(1, max((min(s.length // Cs, m.max_num_chunks)
+                                        for s in batch), default=1)), m)
+            pa, L, scale, off, n_full = stage_batch(
+                batch, B, NC, Cs, m.max_num_chunks,
+                pin=self.device.type == "cuda")
+        with span(stamps, "head.quantize", batch=bi):
+            q, qoff, qscale = quantize(pa.to(self.device, non_blocking=True),
+                                       L, scale, off)
+            n_full_d = torch.from_numpy(n_full).to(self.device)
+        return q.reshape(B, NC, Cs), qoff, qscale, n_full_d, n_full
 
-    def prepare_batch(self, batch: list[ReadSignal],
-                      stream=None) -> PreparedBatch:
+    def prepare_batch(self, batch: list[ReadSignal], stream=None,
+                      stamps: dict | None = None,
+                      bi: int | None = None) -> PreparedBatch:
         """Upload, quantize and event-detect one batch (``batch_features``
         in row blocks of ``_head_block``: kernels B1 and B2 once a block,
         turbo.py:698-740), the device work on ``stream`` (None: the
-        calling thread's current stream).  On the prepare thread with the
-        side stream this is batch N+1's head, which runs while batch N's
-        rounds do."""
+        calling thread's current stream), as the head spans of the pass
+        ``stamps`` (None: no pass), batch ``bi``.  On the prepare thread
+        with the side stream this is batch N+1's head, which runs while
+        batch N's rounds do."""
         m = self.cfg.mapping
         with _on_stream(self.device, stream):
-            qd, qoff, qscale, n_full_d, n_full = self.upload_batch(batch)
-            feats, counts = batch_features(
-                qd, qoff, qscale, n_full_d, self.p, self.cfg.event,
-                m.compress_delta, self._head_block,
-                self._run_head_block if self._graphs else None,
-            )
-            event = None
-            if self.device.type == "cuda":
-                event = torch.cuda.Event()
-                event.record()
+            qd, qoff, qscale, n_full_d, n_full = self.upload_batch(
+                batch, stamps, bi)
+            with span(stamps, "head.features", batch=bi):
+                feats, counts = batch_features(
+                    qd, qoff, qscale, n_full_d, self.p, self.cfg.event,
+                    m.compress_delta, self._head_block,
+                    self._run_head_block if self._graphs else None,
+                )
+                event = None
+                if self.device.type == "cuda":
+                    event = torch.cuda.Event()
+                    event.record()
         return PreparedBatch(feats, counts, n_full_d, n_full, event)
 
     def _map_batch(self, batch: list[ReadSignal], base: int, records: dict,
                    prep: PreparedBatch):
+        """Map one prepared batch: its round loop, then its epilogue (the
+        state's download, the records and the rescue submissions), as spans
+        of the pass ``last_pass``."""
         m = self.cfg.mapping
         B = self.cfg.runtime.read_batch
+        stamps, bi = self.last_pass, base // B
         feats_all, counts_all, n_full_d = prep.feats, prep.counts, \
             prep.n_full_d
         n_full = prep.n_full
-        if prep.event is not None:
-            # the rounds wait for the batch's head; the allocator must not
-            # hand its tensors to the side stream again before they are read
-            main = torch.cuda.current_stream(self.device)
-            main.wait_event(prep.event)
-            for t in (feats_all, counts_all, n_full_d):
-                t.record_stream(main)
-        if self._graphs:
-            graph = self._round_graph(B, feats_all.shape[-1])
-            graph.start(n_full_d)
-        else:
-            st = init_round_state(B, self.p.RING, self.device)
-        mt = np.zeros(B)
-        prev_done = n_full == 0
-        done_h = prev_done.copy()
-        rounds = 0
-        while not done_h.all():
-            t0 = time.perf_counter()
+        with span(stamps, "round.loop", batch=bi) as loop:
+            if prep.event is not None:
+                # the rounds wait for the batch's head; the allocator must
+                # not hand its tensors to the side stream again before they
+                # are read
+                main = torch.cuda.current_stream(self.device)
+                main.wait_event(prep.event)
+                for t in (feats_all, counts_all, n_full_d):
+                    t.record_stream(main)
             if self._graphs:
-                host_sig = graph.run(feats_all[:, rounds],
-                                     counts_all[:, rounds],
-                                     self._merge_matches)
+                graph = self._round_graph(B, feats_all.shape[-1])
+                graph.start(n_full_d)
             else:
-                st, _counts, host_sig = turbo_round(
-                    self.store, feats_all[:, rounds], counts_all[:, rounds],
-                    n_full_d, st, self.p, m.step_size, m.search_radius,
-                    self.index.dim, self.cfg.chain, m, self._merge_matches,
+                st = init_round_state(B, self.p.RING, self.device)
+            mt = np.zeros(B)
+            prev_done = n_full == 0
+            done_h = prev_done.copy()
+            rounds = 0
+            last = None                 # the last host signal's end
+            while not done_h.all():
+                with span(stamps, "round.launch", loop.index, bi) as launch:
+                    if self._graphs:
+                        host_sig = graph.run(feats_all[:, rounds],
+                                             counts_all[:, rounds],
+                                             self._merge_matches)
+                    else:
+                        st, _counts, host_sig = turbo_round(
+                            self.store, feats_all[:, rounds],
+                            counts_all[:, rounds], n_full_d, st, self.p,
+                            m.step_size, m.search_radius, self.index.dim,
+                            self.cfg.chain, m, self._merge_matches,
+                        )
+                with span(stamps, "round.signal", loop.index, bi,
+                          t0=launch.t1) as sig:
+                    h = host_sig.cpu().numpy()   # the round's one device read
+                    done_h, ovf_h = h[:B].astype(bool), h[B:].astype(bool)
+                    if ovf_h.any():
+                        if (self._rescue_pool is not None
+                                and not self._oracle_kicked):
+                            # start building the rescue oracle so it
+                            # overlaps rounds
+                            self._oracle_kicked = True
+                            self._rescue_pool.submit(self._get_oracle)
+                        elif (self._rescue_pool is None
+                              and not self._ovf_warned):
+                            print(
+                                "warning: turbo capacity overflow with "
+                                f"rescue DISABLED [match={bool(ovf_h[0])} "
+                                f"seeds={bool(ovf_h[1])}]; raise "
+                                "TurboParams.K / TurboParams.S or anchors "
+                                "are dropped",
+                                file=sys.stderr,
+                            )
+                            self._ovf_warned = True
+                last = sig.t1
+                stamps["round_host"].append((launch.s, last - launch.t0))
+                round_ms = (last - launch.t0) * 1000
+                act = ~prev_done
+                mt[act] += round_ms / max(1, int(act.sum()))
+                prev_done = done_h
+                rounds += 1
+            loop.close(last)
+        with span(stamps, "round.epilogue", batch=bi, t0=loop.t1) as epilogue:
+            if self._graphs:
+                st = graph.state
+            rb_f = st.rb_f.cpu().numpy()
+            rb_i = st.rb_i.cpu().numpy()
+            chunk_idx = st.chunk_idx.cpu().numpy()
+            stopped = st.stopped.cpu().numpy()
+            offsets = st.offsets.cpu().numpy()
+            stamps["overflow"] += [
+                base + int(i) for i in np.flatnonzero(rb_i[7, :len(batch)])]
+            for i, s in enumerate(batch):
+                self._emit(
+                    records, base + i, s, rb_f[:, i], rb_i[:, i],
+                    int(chunk_idx[i]), bool(stopped[i]), int(offsets[i]),
+                    float(mt[i]), int(n_full[i]), epilogue,
                 )
-            t_sent = time.perf_counter()
-            h = host_sig.cpu().numpy()        # the round's one device read
-            done_h, ovf_h = h[:B].astype(bool), h[B:].astype(bool)
-            if ovf_h.any():
-                if self._rescue_pool is not None and not self._oracle_kicked:
-                    # start building the rescue oracle so it overlaps rounds
-                    self._oracle_kicked = True
-                    self._rescue_pool.submit(self._get_oracle)
-                elif self._rescue_pool is None and not self._ovf_warned:
-                    print(
-                        "warning: turbo capacity overflow with rescue "
-                        f"DISABLED [match={bool(ovf_h[0])} "
-                        f"seeds={bool(ovf_h[1])}]; raise TurboParams.K / "
-                        "TurboParams.S or anchors are dropped",
-                        file=sys.stderr,
-                    )
-                    self._ovf_warned = True
-            t1 = time.perf_counter()
-            self.last_pass["round_host"].append((t_sent - t0, t1 - t0))
-            round_ms = (t1 - t0) * 1000
-            act = ~prev_done
-            mt[act] += round_ms / max(1, int(act.sum()))
-            prev_done = done_h
-            rounds += 1
-        if self._graphs:
-            st = graph.state
-        rb_f = st.rb_f.cpu().numpy()
-        rb_i = st.rb_i.cpu().numpy()
-        chunk_idx = st.chunk_idx.cpu().numpy()
-        stopped = st.stopped.cpu().numpy()
-        offsets = st.offsets.cpu().numpy()
-        self.last_pass["overflow"] += [
-            base + int(i) for i in np.flatnonzero(rb_i[7, :len(batch)])]
-        for i, s in enumerate(batch):
-            self._emit(
-                records, base + i, s, rb_f[:, i], rb_i[:, i],
-                int(chunk_idx[i]), bool(stopped[i]), int(offsets[i]),
-                float(mt[i]), int(n_full[i]),
-            )
+        stamps["rounds"].append((loop.t0, epilogue.t1))
 
     def _emit(self, records, rid, s: ReadSignal, sf, si, chunk_idx,
-              stopped_early, num_events, mt_ms, num_chunks):
+              stopped_early, num_events, mt_ms, num_chunks,
+              epilogue: Span):
         """Output decision + PAF record (sigmap.cc:690-866 semantics;
-        turbo.py:870-942, copied: host code)."""
+        turbo.py:870-942, copied: host code); a rescue is submitted as a
+        child of the batch's ``epilogue`` span."""
         m = self.cfg.mapping
         if chunk_idx > 0 and not stopped_early:
             # loop-exhaustion adjustment (sigmap.cc:690-693)
@@ -1006,6 +1036,6 @@ class TurboMapper:
             )
             if ovf and self._rescue_pool is not None:
                 # unmapped and capacity-truncated: the exact engine decides
-                self._rescue_futs.append(
-                    self._rescue_pool.submit(self._rescue_one, rid, s, mt_ms)
-                )
+                self._rescue_futs.append(self._rescue_pool.submit(
+                    self._rescue_one, rid, s, mt_ms, self.last_pass,
+                    epilogue))

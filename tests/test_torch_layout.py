@@ -19,7 +19,7 @@ MODULES = [
     "sigmap_tpu_torch.ops.sweep_kernel", "sigmap_tpu_torch.ops.chain_fused",
     "sigmap_tpu_torch.mapping.sweep_search",
     "sigmap_tpu_torch.mapping.turbo", "sigmap_tpu_torch.mapping.graphs",
-    "sigmap_tpu_torch.mapping.records",
+    "sigmap_tpu_torch.mapping.records", "sigmap_tpu_torch.mapping.spans",
     "sigmap_tpu_torch.ops.sdtw_kernel", "sigmap_tpu_torch.signal.events_ref",
     "sigmap_tpu_torch.debug_modes", "sigmap_tpu_torch.mapping.seeding",
     "sigmap_tpu_torch.mapping.driver", "sigmap_tpu_torch.config",

@@ -300,13 +300,13 @@ def test_overlap_errors_reach_the_caller(workload, monkeypatch, where):
     mapper = _overlapping_mapper(workload)
     prepare, prepared, mapped = mapper.prepare_batch, [], []
 
-    def prepare_batch(batch, stream=None):
+    def prepare_batch(batch, stream=None, *pass_spans):
         i = batch_of[id(batch[0])]
         if i == 2:
             if where == "prepare":
                 raise RuntimeError("prepare failed")
             time.sleep(0.5)
-        out = prepare(batch, stream)
+        out = prepare(batch, stream, *pass_spans)
         prepared.append(i)
         return out
 
