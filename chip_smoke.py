@@ -19,6 +19,12 @@
    a wrapping ring, empty blocks), whole and in windows of ADV_WINDOW_ROWS
    rows; B1 and B2 also on adversarial rows (ragged lengths, R, C and E off
    the kernels' tile sizes; B2's steps at delta and one ulp either side);
+   the rescue's search kernel (rescue_search) runs on the first rescue
+   chunk of the first read, as the exact engine asks the mapper's card
+   search for it, over the whole tile store: its counts and candidates
+   equal its plain version's, the rotation's rounding stays 100 times
+   under EPS, and the card search's answer equals the k-d tree's on every
+   chunk of that read;
 4. drives the main path through the CLI (``-i`` then ``-m``) on a synthetic
    genome with BLOW5 (zlib) reads, scores the PAF against the simulation
    truth, checks that every kernel of the path was launched, and prints
@@ -204,6 +210,9 @@ KERNELS = {
                     "sigmap_tpu/ops/chain_fused.py:48"),
     "sdtw": ("sigmap_tpu_torch/csrc/sdtw.cu",
              "sigmap_tpu/ops/sdtw_kernel.py:47"),
+    # no TPU kernel: the rescue's host k-d tree search
+    "rescue_search": ("sigmap_tpu_torch/csrc/rescue_search.cu",
+                      "sigmap_tpu_torch/csrc/core.cc:164"),
 }
 
 # chrome-trace categories of work on the device
@@ -643,6 +652,125 @@ def sweep_work(bm, TILE, block, dim, K):
     return pairs, bound(pairs * ops_per_pair, nbytes)
 
 
+def rescue_work(bm, Q, TILE, dim, candidates):
+    """rescue_search's (pair-evaluations, (operations, bytes)) on
+    blockmeta `bm` [2*NO+1, Q] (one seed a block): each seed against every
+    window of its tile steps, at B3's operations a pair; the bytes are each
+    step's dim rows of a tile (the blocks stream them on their own), the
+    seeds, the table, the counts and the candidates."""
+    NO = (bm.shape[0] - 1) // 2
+    steps = int(bm[2 * NO].long().sum())
+    pairs = steps * TILE
+    nbytes = (steps * dim * TILE * 4 + Q * 8 * 4 + bm.numel() * 4
+              + (1 + Q + 3 * candidates) * 4)
+    ops_per_pair = (3 * dim - 1) + SWEEP_COMPARES_PER_PAIR
+    return pairs, (pairs * ops_per_pair, nbytes)
+
+
+def rescue_check(records, mapper, signals, cfg, dev):
+    """Phase 3, the rescue's search: the exact engine runs the first read
+    with the mapper's card search, which answers each chunk; every chunk's
+    answer equals the k-d tree's (windows and f32 distances a query), and on
+    the first chunk the kernel, launched through its wrapper on the block
+    table the card search builds, equals its plain version (counts exactly,
+    candidates as a set) and is timed against its bound; the rotation's
+    rounding on its candidates is measured against EPS."""
+    import numpy as np
+    import torch
+
+    from sigmap_tpu_torch.mapping import rescue as RS
+    from sigmap_tpu_torch.ops import rescue_search as RK
+    from sigmap_tpu_torch.oracle import Oracle
+
+    t0 = time.perf_counter()
+    oracle = Oracle(mapper.index, cfg)
+    tree_s = time.perf_counter() - t0
+    card = mapper._card_search()
+    assert card is not None, "the mapper has no card search"
+    asked = []
+
+    def search(q, radius_sq, per_cap):
+        got = card(q, radius_sq, per_cap)
+        asked.append((q.copy(), radius_sq, per_cap, got))
+        return got
+
+    oracle.streaming_read(signals[0].pa, search)
+    assert asked, "the first read asked for no search"
+    for q, radius_sq, per_cap, got in asked:
+        want = oracle.tree.radius_batch(q, radius_sq, per_cap=per_cap)
+        assert got is not None, "the card search left a chunk to the tree"
+        qi = np.repeat(np.arange(len(q)), want[2])
+        og, ow = np.lexsort((got[0], qi)), np.lexsort((want[0], qi))
+        assert np.array_equal(got[2], want[2]) and np.array_equal(
+            got[0][og], want[0][ow]) and np.array_equal(
+            got[1][og].view(np.int32), want[1][ow].view(np.int32)), \
+            "the card search's answer differs from the k-d tree's"
+
+    q, radius_sq = asked[0][0], asked[0][1]
+    st, dim, nq = mapper.store, mapper.index.dim, len(q)
+    radius_c = radius_sq * (1 + RS.EPS)
+    span = RS.probe_span(radius_c, st.cell_width)
+    NO = span ** (len(st.radixes) - 1)
+    table = np.zeros(nq * (8 + 2 * NO + 1), np.int32)
+    words, rows = RS.block_table(q, st, card.host, radius_c, span, NO, table)
+    t = torch.from_numpy(table).to(dev)
+    seeds = t[:nq * 8].view(torch.float32).view(nq, 8)
+    bm = t[nq * 8:words].view(2 * NO + 1, nq)
+    counts = torch.zeros(1 + nq, dtype=torch.int32, device=dev)
+    RK.rescue_search(seeds, bm, st.tiles, radius_c, dim, counts)
+    n_cand = int(counts[0])
+    out = torch.zeros(1 + nq + 3 * n_cand, dtype=torch.int32, device=dev)
+
+    def canon(o):
+        cand = o[1 + nq:].view(-1, 3)
+        key = cand[:, 0].long() * nq + cand[:, 1].long()
+        return o[:1 + nq].clone(), cand[torch.argsort(key)]
+
+    def plain():
+        o = torch.zeros_like(out)
+        RK.rescue_search_plain(seeds, bm, st.tiles, radius_c, dim, o)
+        return canon(o)
+
+    RK.rescue_search(seeds, bm, st.tiles, radius_c, dim, out)
+    got = canon(out)
+    pairs, work = rescue_work(bm, nq, st.tile, dim, n_cand)
+    steps = int(bm[2 * NO].long().sum())
+    rec = check(records, "rescue_search",
+                f"Q={nq} NO={NO} tile_steps={steps} candidates={n_cand}",
+                got, lambda: RK.rescue_search(seeds, bm, st.tiles, radius_c,
+                                              dim, out), plain,
+                work=work)
+
+    # each candidate's d^2 in the index's own basis, as kd_radius_rec sums
+    cand = got[1].cpu().numpy()
+    V = np.lib.stride_tricks.sliding_window_view(
+        np.ascontiguousarray(mapper.index.values, np.float32), dim)
+    diff = V[st.perm[cand[:, 0]]] - q[rows[cand[:, 1]]]
+    d2 = diff[:, 0] * diff[:, 0]
+    for d in range(1, dim):
+        d2 = d2 + diff[:, d] * diff[:, d]
+    rounding = float(np.abs(cand[:, 2].view(np.float32) - d2).max()
+                     / radius_sq) if len(cand) else 0.0
+    matches = int((d2 < np.float32(radius_sq)).sum())
+    assert matches == len(asked[0][3][0]), \
+        "the kernel's candidates hold other matches than the card search's"
+    rec.update(seeds=nq, probe_offsets=NO, tile_steps=steps,
+               pair_evals=pairs, candidates=n_cand, matches=matches,
+               rotation_rounding=rounding, eps=RS.EPS,
+               chunks_held_to_tree=len(asked), tree_build_s=tree_s,
+               ptxas=ptxas_summary("rescue_search"))
+    log(f"rescue_search: {len(asked)} chunks of the first read equal the k-d "
+        f"tree's answer (tree built in {tree_s:.1f} s); first chunk "
+        f"{nq} seeds, {NO} probe offsets, {steps} tile steps, {pairs} pair-"
+        f"evaluations, {n_cand} candidates, {matches} matches; kernel "
+        f"{rec['ms']:.3f} ms, bound {rec['bound_ms']:.4f} ms "
+        f"({rec['bound_by']}) = {100 * rec['bound_ms'] / rec['ms']:.1f}% of "
+        f"bound; the rotation's rounding {rounding:.3e} of the radius "
+        f"(EPS {RS.EPS}); ptxas: {rec['ptxas']}")
+    assert rounding * 100 <= RS.EPS, \
+        "the rotation's rounding is not 100 times under EPS"
+
+
 def sweep_adversarial(dim, TILE, K, block, seed=0):
     """B3 inputs (numpy: seeds [Q, 8], blockmeta, tiles, meta, radius) that
     stress the closest-K drain: a tenth of the windows on a 0.25 grid, so
@@ -1064,6 +1192,9 @@ def compare_kernels(map_args, records, dev):
                     dict(adv_kw, cfg=cfg.chain, kb=kb,
                          window_rows=ADV_WINDOW_ROWS),
                     sub=f"adversarial_windows_kb{kb}")
+
+    # --- the rescue's search on a main-path rescue chunk --------------------
+    rescue_check(records, mapper, signals, cfg, dev)
     return mapper, signals
 
 
@@ -2487,7 +2618,8 @@ def long_read_phase(by_path, dev, work, genome_bases, oracle):
             f"{off_mapped}/{n - n_on}; {len(lp['round_host'])} rounds a "
             f"batch; {at_cap} reads at the cap; overflow "
             f"{len(lp['overflow'])}, rescued {len(rescued)} "
-            f"({off_rescued} off-target); rescue tail "
+            f"({off_rescued} off-target), their chunk searches "
+            f"{LAUNCHES['rescue_search']} on the card; rescue tail "
             f"{waits['rescue_tail_ms']:.3f} ms; launches {launches}; "
             f"records equal the eager pass's apart from mt: {same}; "
             + json.dumps(waits))
@@ -2495,6 +2627,8 @@ def long_read_phase(by_path, dev, work, genome_bases, oracle):
         assert correct >= 0.99 * n_on, \
             f"long reads: only {correct}/{n_on} on-target reads correct"
         assert all(launches[k] > 0 for k in names), launches
+        assert LAUNCHES["rescue_search"] > 0 or not rescued, \
+            "long reads: the rescued reads launched no rescue search"
         assert launches["peaks"] == launches["compress_keep"] == len(blocks), \
             f"long reads: B1/B2 {launches} for {len(blocks)} head blocks"
     log(f"long reads: device memory reserved at most "
@@ -2688,6 +2822,8 @@ def main():
     shard_phase(by_path, dev, work, reads, map_args, oracle)
     long_read_phase(by_path, dev, work, int(args.genome_mb * 1e6), oracle)
     del oracle
+    assert sum(p["rescue_search"] for p in by_path.values()) > 0, \
+        "no mapping path rescued a read through the card search"
 
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=src, replaces=rep,

@@ -8,7 +8,9 @@ hash of their sources or flags changes:
   into one library with a plain C interface, loaded with ``ctypes``;
 * the host core ``csrc/core.cc`` (k-d tree, event features, k-mer masks,
   dedup) compiled by ``g++``; the port's ``native`` module loads it, so the
-  port never relies on a prebuilt binary.
+  port never relies on a prebuilt binary;
+* the rescue search's host side ``csrc/rescue_host.cc``, compiled by ``g++``
+  as the core is (``rescue_host``).
 
 A build failure raises; nothing falls back.
 
@@ -42,7 +44,9 @@ NVCC_FLAGS = (
     # every kernel reproduces the reference's f32 rounding op by op: no
     # contraction of a*b+c into FMA, IEEE division and square root
     "-fmad=false", "-prec-div=true", "-prec-sqrt=true",
-    "-Xcompiler", "-fPIC",
+    # and the host code, which rescue_search.cu includes from
+    # rescue_host.cc, as the native core (NATIVE_CXXFLAGS)
+    "-Xcompiler", "-fPIC", "-Xcompiler", "-ffp-contract=off",
     # each kernel's registers, shared memory, stack and spills (BUILD_LOG)
     "-Xptxas", "-v",
 )
@@ -58,13 +62,14 @@ NVCC_FLAGS = (
 NATIVE_CXXFLAGS = "-O3 -march=native -ffp-contract=off -fPIC -std=c++17 -Wall"
 
 LAUNCHES = {"peaks": 0, "compress_keep": 0, "sweep": 0, "chain_fused": 0,
-            "sdtw": 0}
+            "sdtw": 0, "rescue_search": 0}
 
 # compiler output of the kernel library's build by source stem (ptxas -v
 # lines), kept beside the library as <library>.log.json
 BUILD_LOG: dict = {}
 
 _kernels = None
+_rescue_host = None
 _native_ready = False
 # the first build and load of either library happens once in a process,
 # whichever of its threads gets there first (a mapper prepares batches on a
@@ -148,7 +153,7 @@ def kernels() -> ctypes.CDLL:
 
 def _load_kernels() -> ctypes.CDLL:
     srcs = sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
-    tag = _digest(srcs, NVCC_FLAGS)
+    tag = _digest(srcs + [CSRC / "rescue_host.cc"], NVCC_FLAGS)
     out = BUILD_DIR / f"libsigmap_kernels_{tag}.so"
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -204,6 +209,14 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.sig_chain_fused_smem.argtypes = [I, I, I, I, I]
     lib.sig_sdtw_launch.restype = I
     lib.sig_sdtw_launch.argtypes = [P, P, P, P] + [I] * 6 + [P, P, P, P]
+    lib.sig_rescue_search_launch.restype = I
+    lib.sig_rescue_search_launch.argtypes = [P, P, I, I, P, I, F, I, I, I,
+                                             P, P]
+    L, D = ctypes.c_int64, ctypes.c_double
+    lib.sig_rescue_search_card.restype = L
+    lib.sig_rescue_search_card.argtypes = (
+        [I, P, I, I, P, P, P, P, I, D, D, I, L, P, L, P, L, I, P, P, F, I,
+         P, P, P, P, L] + [P] * 7)
 
 
 def check(err: int, name: str) -> None:
@@ -227,6 +240,26 @@ def native_library(src: Path = CSRC / "core.cc",
                 f"native core build failed:\n{r.stdout}\n{r.stderr}")
         os.replace(tmp, out)
     return out
+
+
+def rescue_host() -> ctypes.CDLL:
+    """``csrc/rescue_host.cc`` as a library, built on first call."""
+    global _rescue_host
+    if _rescue_host is None:
+        with _lock:
+            if _rescue_host is None:
+                lib = ctypes.CDLL(str(native_library(CSRC / "rescue_host.cc")))
+                P, I, L, F = (ctypes.c_void_p, ctypes.c_int32,
+                              ctypes.c_int64, ctypes.c_float)
+                D = ctypes.c_double
+                lib.sig_rescue_table.restype = L
+                lib.sig_rescue_table.argtypes = [
+                    P, I, I, P, P, P, P, I, D, D, I, L, P, L, L, I, P, P]
+                lib.sig_rescue_exact.restype = L
+                lib.sig_rescue_exact.argtypes = [
+                    P, I, L, P, P, P, P, I, F, I, P, P, P]
+                _rescue_host = lib
+    return _rescue_host
 
 
 def native() -> None:

@@ -24,6 +24,9 @@ pass's ``map.pass``.  The names, and their parents:
     rescue.read       one rescued read's exact-engine run on   round.epilogue
                       its pool thread; number ``cpu_s``, its
                       thread's CPU time
+    rescue.search     one chunk's radius search of a rescued   rescue.read
+                      read; numbers ``device`` (1 on the card,
+                      0 on the k-d tree), ``seeds``, ``matches``
     rescue.drain      the wait for the pass's rescued reads    map.pass
 
 A child lies inside its parent, but for ``rescue.read``: a rescued read

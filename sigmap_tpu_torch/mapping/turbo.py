@@ -32,6 +32,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import itertools
 import sys
 import threading
@@ -104,6 +105,10 @@ class TileStore:
     span: int
     cell_width: float
     tile: int
+    # on the host, for the rescue's card search (mapping/rescue.py): the
+    # cell sort's permutation (tile slot -> index window) and the cell table
+    perm: np.ndarray | None = None
+    cum_host: np.ndarray | None = None
 
 
 def _put(a, dt, dev):
@@ -126,7 +131,7 @@ def tile_store_from_sweep(sw: SweepIndex, device) -> TileStore:
         cum=put(sw.cum, np.int32), rot=put(sw.rot, np.float32),
         mu=put(sw.mu, np.float32), origin=put(sw.origin, np.float32),
         radixes=tuple(sw.radixes), span=sw.span, cell_width=sw.cell_width,
-        tile=sw.tile,
+        tile=sw.tile, perm=sw.perm, cum_host=sw.cum,
     )
 
 
@@ -653,6 +658,12 @@ class TurboMapper:
         self._ovf_warned = False
         self.n_rescued = 0          # reads re-mapped by the exact engine
         self.n_rescued_mapped = 0
+        # the rescue's chunk searches: on the card (mapping/rescue.py) and
+        # on the host k-d tree
+        self.n_rescue_search_device = 0
+        self.n_rescue_search_host = 0
+        self._card = None
+        self._card_lock = threading.Lock()
         self._pass_ids = itertools.count()   # last_pass["pass_id"]
         # the prepare thread (turbo.py:599) and, on a GPU, its side stream
         self._prep_pool = ThreadPoolExecutor(
@@ -663,6 +674,7 @@ class TurboMapper:
             self._overlap_batches = False
         if self.device.type != "cuda":
             self._graphs = False
+            self._card_rescue = False
         # the graphs met so far (mapping/graphs.py), by everything that
         # fixes their shapes and constants
         self._round_graphs: dict = {}
@@ -684,19 +696,60 @@ class TurboMapper:
                 self._oracle = Oracle(self.index, self.cfg)
         return self._oracle
 
+    def _card_search(self):
+        """The rescue's card search (``mapping/rescue.py:CardSearch``), made
+        at first use, where this mapper searches the whole index's tile
+        store (no merge across shards) and ``_card_rescue`` is set; else
+        None."""
+        if not self._card_rescue or self._merge_matches is not None:
+            return None
+        with self._card_lock:
+            if self._card is None:
+                from .rescue import CardSearch
+
+                self._card = CardSearch(self.store, self.index, self.device)
+        return self._card
+
+    def _rescue_search(self, card, tree, stamps: dict, read: Span,
+                       queries, radius_sq: float, per_cap: int):
+        """One chunk's radius search of the rescued read whose span is
+        ``read``, as ``KdTree.radius_batch`` answers it: by ``card`` (a
+        ``CardSearch`` or None) where it answers, else by ``tree``."""
+        with span(stamps, "rescue.search", read.index, read.batch) as ss:
+            got = (card(queries, radius_sq, per_cap) if card is not None
+                   else None)
+            on_card = got is not None
+            if not on_card:
+                got = tree.radius_batch(queries, radius_sq, per_cap=per_cap)
+            ss.numbers.update(device=int(on_card), seeds=len(queries),
+                              matches=len(got[0]))
+        with self._card_lock:
+            if on_card:
+                self.n_rescue_search_device += 1
+            else:
+                self.n_rescue_search_host += 1
+        return got
+
     def _rescue_one(self, rid: int, s: ReadSignal, turbo_mt: float,
                     stamps: dict, epilogue: Span):
         """Re-map one read with the exact engine, on a rescue thread: span
         rescue.read of the pass ``stamps``, a child of the ``epilogue``
-        that submitted it, with the thread's CPU time over it (``cpu_s``)."""
+        that submitted it, with the thread's CPU time over it (``cpu_s``).
+        Each chunk's radius search runs on the card where it can
+        (``_card_search``), else on the k-d tree: span rescue.search, a
+        child of rescue.read, with its ``device`` (1 on the card), ``seeds``
+        and ``matches``."""
         from .records import streaming_record
 
         with span(stamps, "rescue.read", epilogue.index,
                   epilogue.batch) as sp:
             cpu0 = time.thread_time()
             oracle = self._get_oracle()
+            search = functools.partial(self._rescue_search,
+                                       self._card_search(), oracle.tree,
+                                       stamps, sp)
             chunk_idx_adj, num_events, chains, _stopped = \
-                oracle.streaming_read(s.pa)
+                oracle.streaming_read(s.pa, search)
             sp.numbers["cpu_s"] = time.thread_time() - cpu0
             sp.close()
         return rid, streaming_record(
@@ -725,6 +778,11 @@ class TurboMapper:
     # the CPU, where a test may set it True to run the graphs' static
     # buffers without a capture
     _graphs = True
+
+    # the rescue's chunk searches on the card (_card_search); __init__ sets
+    # it False on the CPU, where a test may set it True to run the plain
+    # version of the search kernel
+    _card_rescue = True
 
     # chunk rows a head block (batch_features); a test may set a small one
     _head_block = HEAD_ROWS

@@ -46,8 +46,11 @@ class Oracle:
         return np.arange(step, n - dim + 1, step, dtype=np.int64)
 
     def chains_for_chunk(
-        self, feats: np.ndarray, step: int, offset: int, prev: list[Chain]
+        self, feats: np.ndarray, step: int, offset: int, prev: list[Chain],
+        search=None,
     ) -> list[Chain]:
+        """One chunk's chains.  ``search`` answers the chunk's radius query
+        as ``KdTree.radius_batch`` does (the k-d tree when None)."""
         m = self.cfg.mapping
         dim = self.index.dim
         positions = self.seeds_for(feats, step)
@@ -55,7 +58,7 @@ class Oracle:
         if len(positions):
             Wf = np.lib.stride_tricks.sliding_window_view(feats, dim)
             queries = Wf[positions].astype(np.float32)
-            fi, fd, fc = self.tree.radius_batch(
+            fi, fd, fc = (search or self.tree.radius_batch)(
                 queries, m.search_radius,
                 per_cap=self.cfg.chain.num_nearest_points,
             )
@@ -78,9 +81,9 @@ class Oracle:
             return len(feats), None
         return len(feats), self.chains_for_chunk(feats, 1, 0, [])
 
-    def streaming_read(self, pa: np.ndarray):
+    def streaming_read(self, pa: np.ndarray, search=None):
         """Streaming path; returns (chunk_index_adj, num_events, chains,
-        stopped_early)."""
+        stopped_early).  ``search``: as chains_for_chunk's."""
         m = self.cfg.mapping
         L = len(pa)
         num_chunks = L // m.chunk_size
@@ -94,7 +97,7 @@ class Oracle:
             feats = self.features_for(pa[lo:hi])
             if len(feats) > m.min_feature_length:
                 chains = self.chains_for_chunk(
-                    feats, m.step_size, num_events, chains
+                    feats, m.step_size, num_events, chains, search
                 )
                 num_events += len(feats)
                 if len(chains) >= 2:

@@ -173,6 +173,124 @@ def test_sweep_kernel_matches_plain_on_gpu(sweep_index, cuda_device):
         assert torch.equal(a, b)
 
 
+# --- the rescue's card search (rescue_search) -------------------------------
+
+def test_rescue_search_kernel_matches_plain_on_gpu(sweep_index, cuda_device):
+    """The kernel's candidates equal its plain version's on the same seeds
+    and tile store: each seed's count and the total exactly, and the set of
+    (seed, slot, d^2) exactly (the kernel appends in no fixed order)."""
+    from sigmap_tpu_torch.index.sweep import SweepIndex
+    from sigmap_tpu_torch.mapping.rescue import (
+        EPS, block_table, host_arrays, probe_span,
+    )
+    from sigmap_tpu_torch.mapping.turbo import tile_store_from_sweep
+    from sigmap_tpu_torch.ops.rescue_search import (
+        rescue_search, rescue_search_plain,
+    )
+
+    cfg, idx = sweep_index
+    sw = SweepIndex.build(idx, RADIUS, tile=256)
+    store = tile_store_from_sweep(sw, cuda_device)
+    qs, _ = closest_k_queries(idx, sw.n_windows)
+    qs = np.ascontiguousarray(qs[:, :idx.dim])
+    radius = RADIUS * (1 + EPS)
+    span = probe_span(radius, sw.cell_width)
+    NO = span ** (len(sw.radixes) - 1)
+    table = np.zeros(qs.shape[0] * (8 + 2 * NO + 1), np.int32)
+    words, _ = block_table(qs, store, host_arrays(store), radius, span, NO,
+                           table)
+    Q, cap = qs.shape[0], 1 << 14
+    seeds = torch.from_numpy(table[:Q * 8].view(np.float32).reshape(Q, 8))
+    bm = torch.from_numpy(table[Q * 8:words].reshape(-1, Q))
+    seeds, bm = seeds.to(cuda_device), bm.to(cuda_device)
+    tiles = store.tiles
+    got = {}
+    for name, fn in (("kernel", rescue_search), ("plain",
+                                                   rescue_search_plain)):
+        out = torch.zeros(1 + Q + 3 * cap, dtype=torch.int32,
+                          device=cuda_device)
+        before = LAUNCHES["rescue_search"]
+        fn(seeds, bm, tiles, radius, idx.dim, out)
+        torch.cuda.synchronize()
+        assert LAUNCHES["rescue_search"] == before + (name == "kernel")
+        out = out.cpu().numpy()
+        n = int(out[0])
+        got[name] = (out[:1 + Q], sorted(map(tuple, out[1 + Q:].reshape(
+            cap, 3)[:n].tolist())))
+    assert 0 < int(got["plain"][0][0]) <= cap
+    np.testing.assert_array_equal(got["kernel"][0], got["plain"][0])
+    assert got["kernel"][1] == got["plain"][1]
+
+
+def test_turbo_card_rescue_on_gpu_matches_kd_rescue(gpu_pore, gpu_genome,
+                                                    cuda_device):
+    """A GPU turbo mapper's rescue searches its chunks on the card, and its
+    records, the rescued reads' among them, equal those of a mapper whose
+    rescue searches the k-d tree (tests/test_torch_rescue_search.py's
+    setup: S=16, K=1, so that reads overflow).  With buffers too small for
+    its first chunk, a card search grows them and answers as the tree."""
+    from sigmap_tpu_torch.config import RuntimeConfig
+    from sigmap_tpu_torch.config import SigmapConfig as Cfg
+    from sigmap_tpu_torch.index.build import build_index
+    from sigmap_tpu_torch.io.fasta import ReferenceSequence
+    from sigmap_tpu_torch.io.signals import ReadSignal, dac_to_pa
+    from sigmap_tpu_torch.mapping import rescue as R
+    from sigmap_tpu_torch.mapping import turbo as T
+    from sigmap_tpu_torch.synth import simulate_reads
+
+    cfg = Cfg(runtime=RuntimeConfig(read_batch=32, num_threads=2))
+    idx = build_index([ReferenceSequence(n, c) for n, c in gpu_genome],
+                      gpu_pore, cfg.index, cfg.mapping.search_radius,
+                      verbose=False)
+    reads = simulate_reads(gpu_pore, gpu_genome, 32, seed=5,
+                           read_bases=2000)
+    signals = [ReadSignal(r.read_id, r.digitisation, r.range, r.offset,
+                          dac_to_pa(r.raw, r.digitisation, r.range,
+                                    r.offset)) for r in reads]
+    params = T.TurboParams(S=16, K=1, RING=64, TILE=256)
+    out = {}
+    for card in (True, False):
+        mapper = T.TurboMapper(idx, cfg, params, device=cuda_device)
+        mapper._card_rescue = card
+        try:
+            before = LAUNCHES["rescue_search"]
+            recs = mapper.streaming_map(signals)
+            out[card] = (_records_without_mt(recs), mapper.n_rescued,
+                         mapper.n_rescue_search_device,
+                         LAUNCHES["rescue_search"] - before,
+                         mapper._card_search())
+        finally:
+            mapper.close()
+    assert out[True][0] == out[False][0]
+    assert out[True][1] == out[False][1] > 0
+    assert out[True][2] > 0 and out[True][3] >= out[True][2]
+    assert out[False][2] == out[False][3] == 0
+
+    # a chunk of 64 index windows with noise, through buffers of 64 words
+    card = out[True][4]
+    W = np.lib.stride_tricks.sliding_window_view(idx.values, idx.dim)
+    rng = np.random.default_rng(3)
+    q = (W[rng.integers(0, idx.n_windows, 64)]
+         + rng.normal(0, 0.1, (64, idx.dim))).astype(np.float32)
+    radius = cfg.mapping.search_radius
+    want = mapper._get_oracle().tree.radius_batch(q, radius, per_cap=5000)
+    small = R.CardSearch(card.store, idx, cuda_device)
+    R_in, R_out = R.IN_WORDS, R.OUT_WORDS
+    R.IN_WORDS = R.OUT_WORDS = 64
+    try:
+        got = small(q, radius, per_cap=5000)
+    finally:
+        R.IN_WORDS, R.OUT_WORDS = R_in, R_out
+    assert got is not None and len(want[0]) > 0
+    np.testing.assert_array_equal(got[2], want[2])
+    qa = np.repeat(np.arange(64), want[2])
+    og, ow = np.lexsort((got[0], qa)), np.lexsort((want[0], qa))
+    np.testing.assert_array_equal(got[0][og], want[0][ow])
+    np.testing.assert_array_equal(got[1][og].view(np.int32),
+                                  want[1][ow].view(np.int32))
+    assert small._bufs[1].numel() >= 1 + 64 + 3 * len(want[0])
+
+
 # --- B5 (sdtw) --------------------------------------------------------------
 
 # chip_smoke.sdtw_adversarial's cases (tests/test_torch_sdtw.py holds the

@@ -33,6 +33,7 @@ MODULES = [
     "sigmap_tpu_torch.ops.fastdtw", "sigmap_tpu_torch.parallel",
     "sigmap_tpu_torch.parallel.turbo_shard",
     "sigmap_tpu_torch.parallel.multihost",
+    "sigmap_tpu_torch.ops.rescue_search", "sigmap_tpu_torch.mapping.rescue",
 ]
 
 BLOCKER = """

@@ -40,7 +40,8 @@ PARENT = {"head.stage": "map.pass", "head.quantize": "map.pass",
           "head.features": "map.pass", "head.wait": "map.pass",
           "round.loop": "map.pass", "round.launch": "round.loop",
           "round.signal": "round.loop", "round.epilogue": "map.pass",
-          "rescue.read": "round.epilogue", "rescue.drain": "map.pass"}
+          "rescue.read": "round.epilogue", "rescue.search": "rescue.read",
+          "rescue.drain": "map.pass"}
 
 # name, overlap, profiler options (None: no profiler), read batches
 RUNS = (("inline", False, None, 2), ("overlap", True, None, 2),
@@ -110,8 +111,9 @@ def test_every_span_of_the_table_appears_once_a_batch(passes, run):
     """Every span named in spans.py appears with the pass's pass_id, on its
     thread: per batch its head, round loop and epilogue (and, with the
     overlap, the caller's wait for it), per round a launch and a signal,
-    per rescued read one rescue.read, and once map.pass and rescue.drain;
-    no other span, so none per read but the rescued ones."""
+    per rescued read one rescue.read and at least one rescue.search (one a
+    chunk searched), and once map.pass and rescue.drain; no other span, so
+    none per read but the rescued ones."""
     p = passes[run]
     stamps = p.stamps
     _, overlap, _, n_batches = RUNS[NAMES.index(run)]
@@ -121,6 +123,11 @@ def test_every_span_of_the_table_appears_once_a_batch(passes, run):
             **{n: n_batches for n in PER_BATCH},
             "round.launch": n_rounds, "round.signal": n_rounds,
             "rescue.read": len(stamps["rescued"])}
+    reads = _named(stamps, "rescue.read")
+    searched = collections.Counter(
+        s.parent for s in _named(stamps, "rescue.search"))
+    assert set(searched) == {r.index for r in reads}
+    want["rescue.search"] = sum(searched.values())
     if overlap:
         want["head.wait"] = n_batches
     got = collections.Counter(s.name for s in stamps["spans"])
@@ -133,7 +140,7 @@ def test_every_span_of_the_table_appears_once_a_batch(passes, run):
         assert [s.batch for s in _named(stamps, name)] == list(
             range(n_batches)), name
     for s in stamps["spans"]:
-        if s.name == "rescue.read":
+        if s.name in ("rescue.read", "rescue.search"):
             assert s.thread.startswith(RESCUE_THREAD)
         elif s.name in HEAD and overlap:
             assert s.thread.startswith(PREPARE_THREAD)
@@ -169,15 +176,20 @@ def test_children_lie_inside_their_parents(passes, run):
 @pytest.mark.parametrize("run", NAMES)
 def test_rescue_read_spans_carry_their_cpu_time(passes, run):
     """One rescue.read a rescued read, its thread's CPU time within its
-    wall time."""
+    wall time; its rescue.search spans carry where each chunk was searched
+    (the k-d tree: the CPU mapper has no card search), its seeds and its
+    matches."""
     stamps = passes[run].stamps
     reads = _named(stamps, "rescue.read")
     assert len(reads) == len(stamps["rescued"]) > 0
     for s in reads:
         assert set(s.numbers) == {"cpu_s"}
         assert 0 <= s.numbers["cpu_s"] <= s.s
+    for s in _named(stamps, "rescue.search"):
+        assert s.numbers.keys() == {"device", "seeds", "matches"}
+        assert s.numbers["device"] == 0 and s.numbers["seeds"] > 0
     assert not any(s.numbers for s in stamps["spans"]
-                   if s.name != "rescue.read")
+                   if s.name not in ("rescue.read", "rescue.search"))
 
 
 @pytest.mark.parametrize("run", NAMES)
