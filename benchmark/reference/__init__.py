@@ -7,8 +7,8 @@ batch) and nothing that the program made: it builds its own signal index
 (``events``), the rounds with their stop rules and output decision
 (``rounds``) and, for a read whose rounds end unmapped after a capacity
 overflow, the exact engine (``rescue``).  It imports nothing of the port
-or of JAX.  Its tensors go to the device it is given, after the program's
-state has been freed.
+or of JAX.  It builds and runs on the device it is given, after the
+program's state has been freed.
 """
 
 from __future__ import annotations
@@ -72,22 +72,20 @@ class Reference:
         self.seconds = {}           # where the reference's time went
         m = cfg.mapping
         t = time.perf_counter()
-        self.idx = index.build(genome, pore, cfg.index, m.search_radius)
+        self.idx = index.build(genome, pore, cfg.index, m.search_radius,
+                               self.dev)
+        self._sync()
         self.seconds["index"] = time.perf_counter() - t
         t = time.perf_counter()
-        sw = sweep_index.build(self.idx, m.search_radius, tile=self.p.TILE)
-
-        def put(a, dt):
-            return torch.from_numpy(np.require(a, dt, ["C"])).to(self.dev)
-
-        self.store = rounds.TileStore(
-            tiles=put(sw.tiles, np.float32), meta=put(sw.meta, np.int32),
-            cum=put(sw.cum, np.int32), rot=put(sw.rot, np.float32),
-            mu=put(sw.mu, np.float32), origin=put(sw.origin, np.float32),
-            radixes=tuple(sw.radixes), span=sw.span,
-            cell_width=sw.cell_width, tile=sw.tile)
+        self.store = sweep_index.build(self.idx, m.search_radius,
+                                       tile=self.p.TILE)
+        self._sync()
         self._search = None
         self.seconds["tile_store"] = time.perf_counter() - t
+
+    def _sync(self) -> None:
+        if self.dev.type == "cuda":
+            torch.cuda.synchronize(self.dev)
 
     def search(self):
         if self._search is None:

@@ -178,10 +178,10 @@ class RadiusSearch:
     def __init__(self, idx, device):
         self.idx = idx
         self.dev = torch.device(device)
-        self.vals = torch.from_numpy(idx.values).to(self.dev)
-        self.keys = torch.from_numpy(idx.cell_keys).to(self.dev)
-        self.starts = torch.from_numpy(idx.cell_starts).to(self.dev)
-        self.perm = torch.from_numpy(idx.perm.astype(np.int64)).to(self.dev)
+        self.vals = idx.values.to(self.dev)
+        self.keys = idx.cell_keys.to(self.dev)
+        self.starts = idx.cell_starts.to(self.dev)
+        self.perm = idx.perm.to(self.dev, torch.int64)
         bd = idx.bucket_dims
         self.offs = torch.tensor(list(itertools.product((-1, 0, 1),
                                                         repeat=bd)),
@@ -470,8 +470,9 @@ def streaming_read(pa: np.ndarray, idx, search: RadiusSearch, cfg):
                 fi, fd, fc = search.search(queries, m.search_radius,
                                            cfg.chain.num_nearest_points)
                 qpos = np.repeat(positions + num_events, fc)
-                group = idx.win_group[fi]
-                tpos = idx.win_pos[fi]
+                fi_d = torch.from_numpy(fi).to(idx.win_group.device)
+                group = idx.win_group[fi_d].cpu().numpy()
+                tpos = idx.win_pos[fi_d].cpu().numpy()
                 for g in np.unique(group):
                     sel = group == g
                     groups[(int(g) // 2, int(g) % 2)] = make_anchors(

@@ -6,7 +6,8 @@ Frozen copies of the port's plain PyTorch versions
 (``mapping/sweep_search.py``, the plain B3 of ``ops/sweep_kernel.py``, the
 plain B4 of ``ops/chain_fused.py``, and ``mapping/turbo.py``'s round and
 ``_emit``), importing nothing of the port.  They run on the tile store that
-``sweep_index.build`` works out again from the reference's own index.
+``sweep_index.build`` works out again from the reference's own index,
+whose window metadata is 64 bits wide.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ import torch
 from .config import ChainingConfig, MappingConfig
 from .records import ChainsSummary, Record, streaming_tags
 
-META_POS_BITS = 25
+META_POS_BITS = 32      # meta: (group << 32) | position, int64
 NEG = -1.0e30
 INF = 1.0e30
 BIG = 2**31 - 1
@@ -152,12 +153,25 @@ def longest_first(qr_s, blockmeta, perm, block: int):
 
 
 
-def _tile_of(starts, cums, s: int):
-    """Flat step s -> global tile per block (offset decoded via cumsum)."""
-    t = starts[:, 0] + s
-    for oo in range(1, starts.shape[1]):
-        t = torch.where(cums[:, oo] <= s, starts[:, oo] + (s - cums[:, oo]), t)
-    return t
+def step_schedule(blockmeta):
+    """Every block's tile steps in the order the plain sweep takes them:
+    (block [P], tile [P], bounds) with step s's blocks, ascending, and
+    their tiles at [bounds[s], bounds[s+1]).  A block's step s lies in the
+    offset o whose steps [cums[o], cums[o+1]) hold it, at tile
+    starts[o] + s - cums[o]."""
+    NO = (blockmeta.shape[0] - 1) // 2
+    starts = blockmeta[:NO].t().to(torch.int64)                  # [G, NO]
+    cums = blockmeta[NO:].t().to(torch.int64)                    # [G, NO+1]
+    n_o = (cums[:, 1:] - cums[:, :-1]).reshape(-1)
+    which = torch.repeat_interleave(
+        torch.arange(n_o.numel(), device=blockmeta.device), n_o)
+    within = torch.arange(which.numel(), device=blockmeta.device) \
+        - torch.repeat_interleave(torch.cumsum(n_o, 0) - n_o, n_o)
+    step = cums[:, :NO].reshape(-1)[which] + within
+    order = torch.sort(step, stable=True).indices
+    bounds = [0] + torch.cumsum(torch.bincount(step), 0).tolist()
+    return ((which // NO)[order],
+            (starts.reshape(-1)[which] + within)[order], bounds)
 
 
 def _wave(dbuf, mt, od, om, ow, go, radius32, K: int):
@@ -198,28 +212,25 @@ def sweep_search_plain(seeds, blockmeta, tiles, meta, radius: float, K: int,
                        TILE: int, dim: int, block: int):
     """Plain version of B3: a loop over each block's tile steps, vectorised
     over the blocks that have that step, with the drain run literally per
-    seed."""
+    seed.  The steps' blocks and tiles are laid out once
+    (``step_schedule``)."""
     dev = seeds.device
     Q = seeds.shape[0]
     G = Q // block
-    NO = (blockmeta.shape[0] - 1) // 2
     T = tiles.shape[0]
     radius32 = torch.tensor(radius, dtype=torch.float32, device=dev)
-    starts = blockmeta[:NO].t().to(torch.int64)                  # [G, NO]
-    cums = blockmeta[NO:].t().to(torch.int64)                    # [G, NO+1]
-    total = cums[:, NO]
+    blocks, tiles_at, bounds = step_schedule(blockmeta)
     sq = seeds.view(G, block, 8)[:, :, :dim]
     tiles_d = tiles[:, :dim, :]
     meta_f = meta.reshape(T, TILE)
     out_d = torch.full((G, block, K), INF, dtype=torch.float32, device=dev)
-    out_m = torch.zeros((G, block, K), dtype=torch.int32, device=dev)
+    out_m = torch.zeros((G, block, K), dtype=torch.int64, device=dev)
     wrote = torch.zeros((G, block), dtype=torch.int64, device=dev)
     cnt = torch.zeros((G, block), dtype=torch.int64, device=dev)
-    n_steps = int(total.max().item()) if G else 0
-    for s in range(n_steps):
-        act = torch.nonzero(total > s).squeeze(1)
+    for s in range(len(bounds) - 1):
+        act = blocks[bounds[s]: bounds[s + 1]]
+        t = tiles_at[bounds[s]: bounds[s + 1]]
         nb = act.numel()
-        t = _tile_of(starts[act], cums[act], s)
         wt = tiles_d[t]                                # [nb, dim, TILE]
         q = sq[act]                                    # [nb, block, dim]
         acc = torch.zeros((nb, block, TILE), dtype=torch.float32, device=dev)
@@ -264,7 +275,7 @@ def sweep_round(seeds, cum, tiles, meta, rot, mu, origin, radius: float,
     """Full radius search for one round's seeds [Q0, 8] (raw coords, invalid
     seeds = SEED_PAD), in the original seed order.
 
-    Returns (m_meta [Q0, K] i32, m_d2 [Q0, K] f32, cnt [Q0] i32 exact
+    Returns (m_meta [Q0, K] i64, m_d2 [Q0, K] f32, cnt [Q0] i32 exact
     totals, wrote [Q0] i32 slots filled)."""
     Q0 = seeds.shape[0]
     qr_s, blockmeta, perm = longest_first(*prepare_round(
@@ -432,7 +443,7 @@ class TileStore:
     """The sweep index on the device (index/sweep.py layout)."""
 
     tiles: torch.Tensor    # [T, 8, TILE] f32 rotated coords
-    meta: torch.Tensor     # [T, 8, TILE//8] i32 (group << 25) | tpos
+    meta: torch.Tensor     # [T, 8, TILE//8] i64 (group << 32) | tpos
     cum: torch.Tensor      # [prod(radixes)+1] i32 cumulative cell table
     rot: torch.Tensor      # [dim, dim] f32
     mu: torch.Tensor       # [dim] f32
@@ -528,8 +539,8 @@ def anchors_qpos_major(m_meta, m_d2, wrote, qpos, B: int, S: int, K: int):
     kk = torch.arange(K, device=m_meta.device)
     a_valid = kk[None, None, :] < wrote.reshape(B, S)[:, :, None]
     pos_mask = (1 << META_POS_BITS) - 1
-    n_t = (m_meta & pos_mask).reshape(B, S * K).t()
-    n_g = torch.where(a_valid, m_meta >> META_POS_BITS, -1)
+    n_t = (m_meta & pos_mask).to(torch.int32).reshape(B, S * K).t()
+    n_g = torch.where(a_valid, (m_meta >> META_POS_BITS).to(torch.int32), -1)
     n_g = n_g.reshape(B, S * K).t()
     n_d = m_d2.reshape(B, S * K).t()
     n_q = qpos[:, :, None].expand(B, S, K).reshape(B, S * K).t()
@@ -547,7 +558,7 @@ class RoundSearch:
     has_f: torch.Tensor       # [B] bool
     seed_ovf: torch.Tensor    # scalar bool
     qpos: torch.Tensor        # [B, S] i32
-    m_meta: torch.Tensor      # [B*S, K] i32
+    m_meta: torch.Tensor      # [B*S, K] i64
     m_d2: torch.Tensor        # [B*S, K] f32
     cnt: torch.Tensor         # [B*S] i32 exact match totals
     wrote: torch.Tensor       # [B*S] i32 slots filled

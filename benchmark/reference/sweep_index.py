@@ -1,119 +1,111 @@
-"""The sweep tile store, worked out again from the reference's index: a
-frozen copy of the port's ``index/sweep.py:SweepIndex.build`` (PCA basis
-from a sample, rotated windows sorted by the span-3 cell grid, tiles of
-TILE windows and their packed metadata)."""
+"""The sweep tile store, worked out again from the reference's index in
+plain torch on its device: the port's ``index/sweep.py:SweepIndex.build``
+(PCA basis from a sample, rotated windows sorted by the span-3 cell grid,
+tiles of TILE windows and their packed metadata).
+
+Every array equals the numpy builder's that it replaced
+(``benchmark/tests/numpy_oracle.py``) bit for bit, as ``index`` says; the
+PCA basis comes from the same sample in float64 on the host.  The
+metadata is packed into 64 bits, ``(group << 32) | position``, ordered as
+the port's 32-bit ``(group << 25) | position`` wherever that fits, so the
+reference takes any number of sequences and positions.
+"""
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-
 import numpy as np
+import torch
+
+from .rounds import META_POS_BITS, TileStore
 
 SWEEP_DIMS = 4
 SWEEP_SPAN = 3
 PAD_COORD = 1.0e30
-META_POS_BITS = 25
 
 
 def bucket_dims(dim: int) -> int:
     return min(SWEEP_DIMS, dim)
 
 
-@dataclass
-class Sweep:
-    tiles: np.ndarray
-    meta: np.ndarray
-    cum: np.ndarray
-    rot: np.ndarray
-    mu: np.ndarray
-    origin: np.ndarray
-    radixes: tuple
-    span: int
-    cell_width: float
-    tile: int
+def pca_basis(values, nw: int, dim: int):
+    """(mu, rot) in float64 from every (nw // 300,000)-th window."""
+    step = max(1, nw // 300_000)
+    first = torch.arange(0, nw, step, device=values.device)
+    samp = torch.stack([values[first + d] for d in range(dim)], dim=1)
+    samp = samp.cpu().numpy().astype(np.float64)
+    mu = samp.mean(axis=0) if len(samp) else np.zeros(dim)
+    if len(samp) > dim:
+        cov = np.cov((samp - mu).T)
+        evals, evecs = np.linalg.eigh(np.atleast_2d(cov))
+        rot = evecs[:, np.argsort(evals)[::-1]]
+    else:
+        rot = np.eye(dim)
+    return mu, rot
 
 
 def build(idx, radius: float, tile: int = 1024,
-          span: int = SWEEP_SPAN) -> Sweep:
-    """``idx``: the reference's ``index.Index``."""
+          span: int = SWEEP_SPAN) -> TileStore:
+    """``idx``: the reference's ``index.Index``; the store lies on its
+    device."""
     nw = idx.n_windows
     dim = idx.dim
+    dev = idx.values.device
     if dim < 2:
         raise ValueError("sweep layout needs index dim >= 2")
     if dim > 8:
         raise ValueError("sweep layout packs windows into 8 f32 rows")
     bd = bucket_dims(dim)
     w = 2.0 * float(np.sqrt(radius)) / (span - 1)
-    if len(idx.ref_lengths) * 2 > (1 << (31 - META_POS_BITS)):
-        raise ValueError("too many reference sequences for packed meta")
-    if nw and int(idx.win_pos.max(initial=0)) >= (1 << META_POS_BITS):
-        raise ValueError(
-            "target positions overflow packed meta "
-            f"(>= 2^{META_POS_BITS}); shard the index first"
-        )
-    # windows as [nw, dim] strided view over the flat value array
-    Wview = np.lib.stride_tricks.sliding_window_view(
-        idx.values, dim
-    )[:nw]
-    # PCA basis from a SAMPLE in f64 (covariance is 6x6; eigh exact);
-    # the full-array rotation then runs in f32 accumulated from dim
-    # shifted views — no [nw, dim] f64 materialization (the f64 copy +
-    # matmul dominated index-load time at 12 Mb: ~35 s on this host)
-    samp = Wview[:: max(1, nw // 300_000)].astype(np.float64)
-    mu = samp.mean(axis=0) if len(samp) else np.zeros(dim)
-    if len(samp) > dim:
-        cov = np.cov((samp - mu).T)
-        evals, evecs = np.linalg.eigh(np.atleast_2d(cov))
-        order = np.argsort(evals)[::-1]
-        rot = evecs[:, order]
+    mu, rot = pca_basis(idx.values, nw, dim)
+    rot_f = torch.from_numpy(rot.astype(np.float32)).to(dev)
+    base = -(mu @ rot).astype(np.float32)
+    vals = idx.values
+    # the rotated windows a column each, every term a multiply and an add
+    # of its own in dim order
+    cols = []
+    for j in range(dim):
+        c = torch.full((nw,), float(base[j]), dtype=torch.float32,
+                       device=dev)
+        for d in range(dim):
+            c = c + vals[d: d + nw] * rot_f[d, j]
+        cols.append(c)
+    if nw:
+        origin = np.array([float(c.min()) for c in cols[:bd]], np.float32)
+        top = np.array([float(c.max()) for c in cols[:bd]], np.float32)
+        radixes = tuple(int(x) for x in np.ceil(
+            (top - origin) / w).astype(np.int64) + 2)
     else:
-        rot = np.eye(dim)
-    rot_f = rot.astype(np.float32)
-    vals = idx.values.astype(np.float32, copy=False)
-    WR = np.empty((nw, dim), np.float32)               # [nw, dim]
-    WR[:] = -(mu @ rot).astype(np.float32)[None, :]
-    for d in range(dim):
-        WR += vals[d : d + nw, None] * rot_f[d][None, :]
-    origin = (
-        WR[:, :bd].min(axis=0) if nw else np.zeros(bd, np.float32)
-    )
-    radixes = tuple(
-        int(x) for x in (
-            np.ceil(
-                ((WR[:, :bd].max(axis=0) - origin) / w)
-            ).astype(np.int64) + 2
-            if nw else np.full(bd, 2, np.int64)
-        )
-    )
+        origin = np.zeros(bd, np.float32)
+        radixes = (2,) * bd
     keyspace = int(np.prod(radixes))
     if keyspace > (1 << 27):
         raise ValueError(f"sweep cell table too large ({keyspace})")
-    coords = np.clip(
-        np.floor((WR[:, :bd] - origin) / w).astype(np.int64),
-        0, np.asarray(radixes, np.int64)[None, :] - 1,
-    )
-    key = coords[:, 0].copy() if nw else np.zeros(0, np.int64)
-    for d in range(1, bd):
-        key = key * radixes[d] + coords[:, d]
-    perm = np.argsort(key, kind="stable").astype(np.int32)
-    counts = np.bincount(key, minlength=keyspace)
-    cum = np.zeros(keyspace + 1, np.int32)
-    np.cumsum(counts, out=cum[1:])
+    wt = torch.tensor(w, dtype=torch.float32, device=dev)
+    key = torch.zeros(nw, dtype=torch.int64, device=dev)
+    for d in range(bd):
+        o = torch.tensor(origin[d], dtype=torch.float32, device=dev)
+        coord = torch.clamp(torch.floor((cols[d] - o) / wt).to(torch.int64),
+                            0, radixes[d] - 1)
+        key = key * radixes[d] + coord
+    perm = torch.sort(key, stable=True).indices
+    cum = torch.zeros(keyspace + 1, dtype=torch.int32, device=dev)
+    cum[1:] = torch.cumsum(torch.bincount(key, minlength=keyspace), 0)
+    del key
     T = max(1, -(-nw // tile))
-    meta_flat = (
-        (idx.win_group[perm].astype(np.int32) << META_POS_BITS)
-        | idx.win_pos[perm].astype(np.int32)
-    )
-    tiles = np.zeros((T * tile, 8), np.float32)
-    tiles[:nw, :dim] = WR[perm]
-    tiles[nw:, 0] = PAD_COORD
-    meta = np.zeros(T * tile, np.int32)
-    meta[:nw] = meta_flat
-    # [T, 8, tile//8]: a tile's windows transposed, and their metadata
-    tiles_t = np.ascontiguousarray(
-        tiles.reshape(T, tile, 8).transpose(0, 2, 1))
-    meta_t = meta.reshape(T, 8, tile // 8)
-    return Sweep(tiles=tiles_t, meta=meta_t, cum=cum,
-                 rot=rot.astype(np.float32), mu=mu.astype(np.float32),
-                 origin=origin.astype(np.float32), radixes=radixes,
-                 span=span, cell_width=w, tile=tile)
+    # [T, 8, tile]: a tile's windows transposed, and their metadata
+    tiles = torch.zeros((T, 8, tile), dtype=torch.float32, device=dev)
+    for j in range(dim):
+        col = torch.zeros(T * tile, dtype=torch.float32, device=dev)
+        col[:nw] = cols[j][perm]
+        if j == 0:
+            col[nw:] = PAD_COORD
+        tiles[:, j, :] = col.view(T, tile)
+        cols[j] = None
+    meta = torch.zeros(T * tile, dtype=torch.int64, device=dev)
+    meta[:nw] = ((idx.win_group[perm].to(torch.int64) << META_POS_BITS)
+                 | idx.win_pos[perm].to(torch.int64))
+    return TileStore(
+        tiles=tiles, meta=meta.view(T, 8, tile // 8), cum=cum, rot=rot_f,
+        mu=torch.from_numpy(mu.astype(np.float32)).to(dev),
+        origin=torch.from_numpy(origin).to(dev), radixes=radixes,
+        span=span, cell_width=w, tile=tile)

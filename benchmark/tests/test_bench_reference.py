@@ -146,8 +146,8 @@ def test_reference_index_matches_the_port_on_a_small_genome(tiny):
     idx = build_index([ReferenceSequence(n, c) for n, c in inputs.genome],
                       PoreModel(inputs.pore.k, lm, z, z, z), cfg.index,
                       cfg.mapping.search_radius, verbose=False)
-    assert np.array_equal(idx.values, ref.idx.values)
-    assert np.array_equal(idx.win_group, ref.idx.win_group)
-    assert np.array_equal(idx.win_pos, ref.idx.win_pos)
+    assert np.array_equal(idx.values, ref.idx.values.cpu().numpy())
+    assert np.array_equal(idx.win_group, ref.idx.win_group.cpu().numpy())
+    assert np.array_equal(idx.win_pos, ref.idx.win_pos.cpu().numpy())
     assert torch.equal(torch.from_numpy(idx.perm.astype(np.int64)),
-                       torch.from_numpy(ref.idx.perm.astype(np.int64)))
+                       ref.idx.perm.cpu().to(torch.int64))

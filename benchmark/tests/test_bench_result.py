@@ -7,8 +7,22 @@ import sys
 
 from benchmark import compare, run as run_mod, workload
 from benchmark.tests.test_bench_metrics import made_up_run, made_up_trace
+from benchmark.tests.test_bench_spans import _span, spanned_run
 
 ROOT = workload.ROOT
+
+
+def spanned_traced_run(trace):
+    """The made-up run with its trace, and in each call's stamps the
+    program's spans, one rescued chunk searched on the card among them:
+    something for every per-layer reader to read."""
+    run = made_up_run(trace)
+    for c, sc in zip(run.calls, spanned_run().calls):
+        c.stamps["spans"] = sc.stamps["spans"]
+    run.calls[0].stamps["spans"].append(
+        _span("rescue.search", 0.55, 0.551, device=1, seeds=200,
+              matches=16000))
+    return run
 
 
 def test_metrics_follow_the_cell_and_the_trace_switch():
@@ -24,8 +38,8 @@ def test_metrics_follow_the_cell_and_the_trace_switch():
         assert all(set(v) == {"value", "unit"} for v in m.values())
     _, tr = made_up_trace()
     for w in bench["workloads"]:
-        m = run_mod.metrics_of(bench, w["name"], made_up_run(tr), values,
-                               True)
+        m = run_mod.metrics_of(bench, w["name"], spanned_traced_run(tr),
+                               values, True)
         assert set(m) == {e["name"] for e in bench["per_layer"]
                           if w["name"] in e.get("workloads", [w["name"]])}
 
