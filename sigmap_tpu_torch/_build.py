@@ -58,8 +58,10 @@ NVCC_FLAGS = (
 # scores would round differently from host to host.  Without -ffast-math g++
 # does not reassociate, so with contraction off the vector width that
 # -march=native picks no longer changes a result: the core rounds op by op,
-# as the CUDA kernels do (-fmad=false above).
-NATIVE_CXXFLAGS = "-O3 -march=native -ffp-contract=off -fPIC -std=c++17 -Wall"
+# as the CUDA kernels do (-fmad=false above).  -pthread: the k-d tree is
+# built on std::threads.
+NATIVE_CXXFLAGS = ("-O3 -march=native -ffp-contract=off -fPIC -std=c++17 "
+                   "-Wall -pthread")
 
 LAUNCHES = {"peaks": 0, "compress_keep": 0, "sweep": 0, "chain_fused": 0,
             "sdtw": 0, "rescue_search": 0}

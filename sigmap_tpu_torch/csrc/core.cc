@@ -8,17 +8,23 @@
 //
 // Contents:
 //   sig_dedup            - point-cloud consecutive dedup (spatial_index.cc:33-57)
-//   sig_kd_build/free    - exact k-d tree over overlapping signal windows
+//   sig_kd_build/free    - exact k-d tree over overlapping signal windows,
+//                          built on every core the process may run on
 //   sig_kd_radius        - strict squared-L2 radius search (nanoflann parity)
 //   sig_chain            - anchor chaining DP with exact skip/gap semantics
 //                          (spatial_index.cc:418-550)
 //
 // Build: sigmap_tpu_torch/_build.py:native_library (g++, at first use).
 
+#include <sched.h>
+
 #include <algorithm>
+#include <array>
+#include <atomic>
 #include <cmath>
 #include <cstdint>
 #include <cstring>
+#include <thread>
 #include <vector>
 
 extern "C" {
@@ -85,11 +91,14 @@ struct KdTree {
 
   inline float coord(int32_t p, int32_t d) const { return vals[p + d]; }
 
-  int32_t build(int32_t begin, int32_t end) {
-    int32_t ni = (int32_t)nodes.size();
-    nodes.emplace_back();
+  // The subtree over idx[begin, end), appended to `out` in preorder (a
+  // node, its left subtree, its right subtree); returns its root's index
+  // in `out`.
+  int32_t build(std::vector<KdNode>& out, int32_t begin, int32_t end) {
+    int32_t ni = (int32_t)out.size();
+    out.emplace_back();
     {
-      KdNode& n = nodes[ni];
+      KdNode& n = out[ni];
       for (int d = 0; d < dim; ++d) {
         n.bbox_min[d] = 3.4e38f;
         n.bbox_max[d] = -3.4e38f;
@@ -103,47 +112,336 @@ struct KdTree {
       }
     }
     if (end - begin <= max_leaf) {
-      KdNode& n = nodes[ni];
+      KdNode& n = out[ni];
       n.begin = begin;
       n.end = end;
       return ni;
     }
-    // split widest dim at midpoint of the bbox (sliding-midpoint-free,
-    // median fallback when degenerate)
-    int sd = 0;
-    float width = -1.0f;
-    for (int d = 0; d < dim; ++d) {
-      float w = nodes[ni].bbox_max[d] - nodes[ni].bbox_min[d];
-      if (w > width) {
-        width = w;
-        sd = d;
-      }
-    }
-    float sv = 0.5f * (nodes[ni].bbox_min[sd] + nodes[ni].bbox_max[sd]);
-    int32_t* base = idx.data();
-    int32_t* mid = std::partition(base + begin, base + end, [&](int32_t p) {
-      return coord(p, sd) < sv;
-    });
-    int32_t m = (int32_t)(mid - base);
-    if (m == begin || m == end) {  // degenerate: median split
-      m = begin + (end - begin) / 2;
-      std::nth_element(base + begin, base + m, base + end,
-                       [&](int32_t a, int32_t b) {
-                         return coord(a, sd) < coord(b, sd);
-                       });
-      sv = coord(base[m], sd);
-    }
-    int32_t li = build(begin, m);
-    int32_t ri = build(m, end);
-    KdNode& n = nodes[ni];
+    int sd;
+    float sv;
+    int32_t m = split(out[ni], begin, end, &sd, &sv);
+    int32_t li = build(out, begin, m);
+    int32_t ri = build(out, m, end);
+    KdNode& n = out[ni];
     n.split_dim = sd;
     n.split_val = sv;
     n.left = li;
     n.right = ri;
     return ni;
   }
+
+  // split widest dim at midpoint of the bbox (sliding-midpoint-free,
+  // median fallback when degenerate); returns the split's index in idx
+  int32_t split(const KdNode& n, int32_t begin, int32_t end, int* sd_out,
+                float* sv_out) {
+    int sd = 0;
+    float width = -1.0f;
+    for (int d = 0; d < dim; ++d) {
+      float w = n.bbox_max[d] - n.bbox_min[d];
+      if (w > width) {
+        width = w;
+        sd = d;
+      }
+    }
+    float sv = 0.5f * (n.bbox_min[sd] + n.bbox_max[sd]);
+    int32_t* base = idx.data();
+    int32_t* mid = std::partition(base + begin, base + end, [&](int32_t p) {
+      return coord(p, sd) < sv;
+    });
+    int32_t m = (int32_t)(mid - base);
+    if (m == begin || m == end) median(begin, end, sd, &m, &sv);
+    *sd_out = sd;
+    *sv_out = sv;
+    return m;
+  }
+
+  void median(int32_t begin, int32_t end, int sd, int32_t* m, float* sv) {
+    int32_t* base = idx.data();
+    *m = begin + (end - begin) / 2;
+    std::nth_element(base + begin, base + *m, base + end,
+                     [&](int32_t a, int32_t b) {
+                       return coord(a, sd) < coord(b, sd);
+                     });
+    *sv = coord(base[*m], sd);
+  }
 };
 
+// ---------------------------------------------------------------------------
+// The same tree built on several threads: the same idx order and the same
+// nodes, numbered alike, as KdTree::build on one.  The nodes above `grain`
+// points are split a level at a time: while a level has fewer nodes than
+// threads, each of its nodes has its bbox reduced and its points
+// partitioned by all threads; a wider level splits its nodes side by side.
+// The subtrees at or below `grain` are then built by KdTree::build, one a
+// thread at a time, and spliced in preorder.  The partition of a node over
+// threads is the one std::partition makes (libstdc++'s, for any iterator
+// at least bidirectional): it swaps the i-th point of the left part that
+// belongs right, from the left, with the i-th point of the right part that
+// belongs left, from the right, and moves nothing else.  min and max are
+// exact in any order, so the bboxes are the one-thread ones.
+// ---------------------------------------------------------------------------
+
+}  // extern "C": the helpers below are C++ templates
+
+// the cores this process may run on (its affinity mask)
+static int kd_threads() {
+  cpu_set_t set;
+  if (sched_getaffinity(0, sizeof(set), &set) == 0)
+    return std::max(1, CPU_COUNT(&set));
+  return std::max(1u, std::thread::hardware_concurrency());
+}
+
+// fn(c) for every c in [0, n), on up to `threads` threads (the caller's
+// among them), each taking the next c when it is done with one
+template <class F>
+static void parallel_for(int threads, int64_t n, const F& fn) {
+  int t = (int)std::min<int64_t>(threads, n);
+  if (t <= 1) {
+    for (int64_t c = 0; c < n; ++c) fn(c);
+    return;
+  }
+  std::atomic<int64_t> next(0);
+  auto work = [&]() {
+    for (int64_t c; (c = next.fetch_add(1)) < n;) fn(c);
+  };
+  std::vector<std::thread> pool;
+  for (int i = 1; i < t; ++i) pool.emplace_back(work);
+  work();
+  for (auto& th : pool) th.join();
+}
+
+struct KdParallel {
+  KdTree& t;
+  int threads;
+  int32_t grain;
+  // a node above grain (task < 0) with its children here, or a subtree
+  // built by task `task` over [begin, end)
+  struct Top {
+    KdNode node;
+    int32_t left = -1, right = -1, task = -1;
+  };
+  std::vector<Top> top;
+  std::vector<std::pair<int32_t, int32_t>> tasks;
+
+  // [begin, end) cut into one range a chunk, `chunks` of them
+  static std::pair<int32_t, int32_t> chunk(int32_t begin, int32_t end,
+                                           int64_t chunks, int64_t c) {
+    int64_t n = end - begin;
+    return {(int32_t)(begin + n * c / chunks),
+            (int32_t)(begin + n * (c + 1) / chunks)};
+  }
+
+  int64_t n_chunks(int32_t begin, int32_t end) const {
+    return std::max<int64_t>(
+        1, std::min<int64_t>(4 * threads, (end - begin) / 256));
+  }
+
+  void bbox(KdNode& n, int32_t begin, int32_t end) {
+    int64_t C = n_chunks(begin, end);
+    std::vector<KdNode> part(C);
+    parallel_for(threads, C, [&](int64_t c) {
+      auto r = chunk(begin, end, C, c);
+      KdNode& p = part[c];
+      for (int d = 0; d < t.dim; ++d) {
+        p.bbox_min[d] = 3.4e38f;
+        p.bbox_max[d] = -3.4e38f;
+      }
+      for (int32_t i = r.first; i < r.second; ++i) {
+        for (int d = 0; d < t.dim; ++d) {
+          float v = t.coord(t.idx[i], d);
+          p.bbox_min[d] = std::min(p.bbox_min[d], v);
+          p.bbox_max[d] = std::max(p.bbox_max[d], v);
+        }
+      }
+    });
+    for (int d = 0; d < t.dim; ++d) {
+      n.bbox_min[d] = 3.4e38f;
+      n.bbox_max[d] = -3.4e38f;
+      for (int64_t c = 0; c < C; ++c) {
+        n.bbox_min[d] = std::min(n.bbox_min[d], part[c].bbox_min[d]);
+        n.bbox_max[d] = std::max(n.bbox_max[d], part[c].bbox_max[d]);
+      }
+    }
+  }
+
+  // std::partition of idx[begin, end) by coord(p, sd) < sv; returns the
+  // first index of the right part
+  int32_t partition(int32_t begin, int32_t end, int sd, float sv) {
+    int32_t* idx = t.idx.data();
+    auto left = [&](int32_t i) { return t.coord(idx[i], sd) < sv; };
+    int64_t C = n_chunks(begin, end);
+    std::vector<int64_t> cnt(C);
+    parallel_for(threads, C, [&](int64_t c) {
+      auto r = chunk(begin, end, C, c);
+      int64_t k = 0;
+      for (int32_t i = r.first; i < r.second; ++i) k += left(i);
+      cnt[c] = k;
+    });
+    int64_t n_left = 0;
+    for (int64_t k : cnt) n_left += k;
+    int32_t m = (int32_t)(begin + n_left);
+    if (m == begin || m == end) return m;   // nothing moves
+    // the left part's right-going points, left to right, and the right
+    // part's left-going points, right to left
+    int64_t CL = n_chunks(begin, m), CR = n_chunks(m, end);
+    std::vector<int64_t> off_l(CL + 1, 0), off_r(CR + 1, 0);
+    parallel_for(threads, CL + CR, [&](int64_t c) {
+      bool is_l = c < CL;
+      auto r = is_l ? chunk(begin, m, CL, c) : chunk(m, end, CR, c - CL);
+      int64_t k = 0;
+      for (int32_t i = r.first; i < r.second; ++i) k += left(i) != is_l;
+      (is_l ? off_l[c + 1] : off_r[c - CL + 1]) = k;
+    });
+    for (int64_t c = 0; c < CL; ++c) off_l[c + 1] += off_l[c];
+    for (int64_t c = 0; c < CR; ++c) off_r[c + 1] += off_r[c];
+    int64_t n_swap = off_l[CL];
+    std::vector<int32_t> from_l(n_swap), from_r(n_swap);
+    parallel_for(threads, CL + CR, [&](int64_t c) {
+      if (c < CL) {
+        auto r = chunk(begin, m, CL, c);
+        int64_t o = off_l[c];
+        for (int32_t i = r.first; i < r.second; ++i)
+          if (!left(i)) from_l[o++] = i;
+      } else {
+        c -= CL;
+        auto r = chunk(m, end, CR, c);
+        // chunks later in idx come first
+        int64_t o = n_swap - off_r[c + 1];
+        for (int32_t i = r.second - 1; i >= r.first; --i)
+          if (left(i)) from_r[o++] = i;
+      }
+    });
+    int64_t CS = std::max<int64_t>(1, std::min<int64_t>(4 * threads,
+                                                        n_swap / 256));
+    parallel_for(threads, CS, [&](int64_t c) {
+      for (int64_t i = n_swap * c / CS; i < n_swap * (c + 1) / CS; ++i)
+        std::swap(idx[from_l[i]], idx[from_r[i]]);
+    });
+    return m;
+  }
+
+  // The nodes above grain, a level at a time: a level of fewer nodes
+  // than threads splits each node on all of them, a wider one splits its
+  // nodes side by side, each by KdTree::split; a node at or below grain
+  // becomes a task.
+  void split_top() {
+    std::vector<std::array<int32_t, 3>> level{{0, 0, (int32_t)t.n_points}};
+    top.emplace_back();
+    while (!level.empty()) {
+      std::vector<int32_t> ms(level.size());
+      bool wide = (int64_t)level.size() >= threads;
+      auto one = [&](int64_t i) {
+        auto [ti, begin, end] = level[i];
+        KdNode& n = top[ti].node;
+        if (wide) {
+          bbox_serial(n, begin, end);
+          int sd;
+          float sv;
+          ms[i] = t.split(n, begin, end, &sd, &sv);
+          n.split_dim = sd;
+          n.split_val = sv;
+        } else {
+          ms[i] = split_parallel(n, begin, end);
+        }
+      };
+      if (wide)
+        parallel_for(threads, (int64_t)level.size(), one);
+      else
+        for (int64_t i = 0; i < (int64_t)level.size(); ++i) one(i);
+      std::vector<std::array<int32_t, 3>> next;
+      for (size_t i = 0; i < level.size(); ++i) {
+        auto [ti, begin, end] = level[i];
+        int32_t kids[2][2] = {{begin, ms[i]}, {ms[i], end}};
+        for (int k = 0; k < 2; ++k) {
+          int32_t ci = (int32_t)top.size();
+          top.emplace_back();
+          (k ? top[ti].right : top[ti].left) = ci;
+          auto [b, e] = kids[k];
+          if (e - b <= grain) {
+            top[ci].task = (int32_t)tasks.size();
+            tasks.emplace_back(b, e);
+          } else {
+            next.push_back({ci, b, e});
+          }
+        }
+      }
+      level.swap(next);
+    }
+  }
+
+  void bbox_serial(KdNode& n, int32_t begin, int32_t end) {
+    for (int d = 0; d < t.dim; ++d) {
+      n.bbox_min[d] = 3.4e38f;
+      n.bbox_max[d] = -3.4e38f;
+    }
+    for (int32_t i = begin; i < end; ++i) {
+      for (int d = 0; d < t.dim; ++d) {
+        float v = t.coord(t.idx[i], d);
+        n.bbox_min[d] = std::min(n.bbox_min[d], v);
+        n.bbox_max[d] = std::max(n.bbox_max[d], v);
+      }
+    }
+  }
+
+  // KdTree::split on all threads
+  int32_t split_parallel(KdNode& n, int32_t begin, int32_t end) {
+    bbox(n, begin, end);
+    int sd = 0;
+    float width = -1.0f;
+    for (int d = 0; d < t.dim; ++d) {
+      float w = n.bbox_max[d] - n.bbox_min[d];
+      if (w > width) {
+        width = w;
+        sd = d;
+      }
+    }
+    float sv = 0.5f * (n.bbox_min[sd] + n.bbox_max[sd]);
+    int32_t m = partition(begin, end, sd, sv);
+    if (m == begin || m == end) t.median(begin, end, sd, &m, &sv);
+    n.split_dim = sd;
+    n.split_val = sv;
+    return m;
+  }
+
+  int32_t splice(int32_t ti, std::vector<std::vector<KdNode>>& built) {
+    int32_t ni = (int32_t)t.nodes.size();
+    if (top[ti].task >= 0) {
+      for (KdNode n : built[top[ti].task]) {
+        if (n.left >= 0) n.left += ni;
+        if (n.right >= 0) n.right += ni;
+        t.nodes.push_back(n);
+      }
+      std::vector<KdNode>().swap(built[top[ti].task]);
+      return ni;
+    }
+    t.nodes.push_back(top[ti].node);
+    int32_t li = splice(top[ti].left, built);
+    int32_t ri = splice(top[ti].right, built);
+    t.nodes[ni].left = li;
+    t.nodes[ni].right = ri;
+    return ni;
+  }
+
+  void run() {
+    if (t.n_points <= grain) {
+      top.emplace_back();
+      top[0].task = 0;
+      tasks.emplace_back(0, (int32_t)t.n_points);
+    } else {
+      split_top();
+    }
+    std::vector<std::vector<KdNode>> built(tasks.size());
+    parallel_for(threads, (int64_t)tasks.size(), [&](int64_t i) {
+      t.build(built[i], tasks[i].first, tasks[i].second);
+    });
+    splice(0, built);
+  }
+};
+
+extern "C" {
+
+// The tree over windows of vals, built on every core this process may run
+// on; the same tree on any number of them.
 void* sig_kd_build(const float* vals, int64_t n_vals, int32_t dim,
                    int32_t max_leaf) {
   if (dim > 16) return nullptr;
@@ -155,8 +453,41 @@ void* sig_kd_build(const float* vals, int64_t n_vals, int32_t dim,
   t->idx.resize(t->n_points);
   for (int64_t i = 0; i < t->n_points; ++i) t->idx[i] = (int32_t)i;
   t->nodes.reserve(2 * t->n_points / max_leaf + 4);
-  if (t->n_points > 0) t->build(0, (int32_t)t->n_points);
+  int th = kd_threads();
+  if (t->n_points > 0) {
+    if (th <= 1) {
+      t->build(t->nodes, 0, (int32_t)t->n_points);
+    } else {
+      // some 8 subtrees a thread below the nodes split by all of them
+      int32_t grain = (int32_t)std::max<int64_t>(
+          t->n_points / (8 * (int64_t)th), 2 * (int64_t)max_leaf + 1);
+      KdParallel{*t, th, grain}.run();
+    }
+  }
   return t;
+}
+
+// The tree's window order (idx, n_points of them) and its nodes: for each,
+// left, right, begin, end, split_dim into `links` [n_nodes, 5] and its
+// split value into `splits`, where they are not null.  Returns n_nodes.
+int64_t sig_kd_layout(void* tree, int32_t* order, int32_t* links,
+                      float* splits) {
+  KdTree* t = (KdTree*)tree;
+  if (order) std::copy(t->idx.begin(), t->idx.end(), order);
+  int64_t nn = (int64_t)t->nodes.size();
+  for (int64_t i = 0; i < nn; ++i) {
+    const KdNode& n = t->nodes[i];
+    if (links) {
+      int32_t* l = links + 5 * i;
+      l[0] = n.left;
+      l[1] = n.right;
+      l[2] = n.begin;
+      l[3] = n.end;
+      l[4] = n.split_dim;
+    }
+    if (splits) splits[i] = n.split_val;
+  }
+  return nn;
 }
 
 void sig_kd_free(void* tree) { delete (KdTree*)tree; }

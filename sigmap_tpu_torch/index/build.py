@@ -140,6 +140,8 @@ class SignalIndex:
     # derived, not persisted
     win_group: np.ndarray = field(default=None)  # i32[Nw] signal*2+strand
     win_pos: np.ndarray = field(default=None)    # i32[Nw] target signal pos
+    # build_index's set-up span (mapping/spans.py), None for a loaded index
+    build_span: object = field(default=None, repr=False, compare=False)
 
     # radix 35 keeps 6-dim keys inside int32 (35^6 = 1.84e9 < 2^31) for
     # device-side searchsorted; coords clipped to [0, 34] cover z in
@@ -290,10 +292,40 @@ def build_index(
     """Full index construction (reference: Sigmap::ConstructIndex
     sigmap.cc:999-1046).
 
-    mask k-mer length = dim + pore.k - 1 (sigmap.cc:1014)."""
+    mask k-mer length = dim + pore.k - 1 (sigmap.cc:1014).
+
+    Built on the card where torch sees one, in plain torch
+    (``sigmap_tpu_torch.builders.build_index``, the same index bit for
+    bit), else on the host (``build_index_host``).  The build is the
+    index's ``build_span``, ``setup.index``."""
     import time
 
+    import torch
+
+    from ..mapping.spans import setup_span
+
     t0 = time.time()
+    with setup_span("setup.index") as sp:
+        if torch.cuda.is_available():
+            from .. import builders
+
+            idx = builders.build_index(seqs, pore, cfg, search_radius,
+                                       "cuda")
+        else:
+            idx = build_index_host(seqs, pore, cfg, search_radius)
+    idx.build_span = sp
+    if verbose:
+        _report(idx, t0)
+    return idx
+
+
+def build_index_host(
+    seqs: list[ReferenceSequence],
+    pore: PoreModel,
+    cfg: IndexConfig = IndexConfig(),
+    search_radius: float = 0.08,
+) -> SignalIndex:
+    """build_index on the host, with the native core."""
     for s in seqs:
         s.prepare_negative()
     k_mask = cfg.dimension + pore.k - 1
@@ -333,17 +365,19 @@ def build_index(
     positions = (
         np.concatenate(pos_parts) if pos_parts else np.zeros(0, np.uint64)
     )
-    idx = _finalize_index(
+    return _finalize_index(
         values, positions, cfg.dimension, cfg.max_leaf, cfg, search_radius,
         [s.name for s in seqs], [s.length for s in seqs],
     )
-    if verbose:
-        import sys
 
-        print(
-            f"Collected {idx.n_points} points "
-            f"({idx.n_windows} windows, {len(idx.cell_keys)} cells) "
-            f"in {time.time()-t0:.1f}s.",
-            file=sys.stderr,
-        )
-    return idx
+
+def _report(idx: SignalIndex, t0: float) -> None:
+    import sys
+    import time
+
+    print(
+        f"Collected {idx.n_points} points "
+        f"({idx.n_windows} windows, {len(idx.cell_keys)} cells) "
+        f"in {time.time()-t0:.1f}s.",
+        file=sys.stderr,
+    )

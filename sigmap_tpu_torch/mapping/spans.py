@@ -26,8 +26,22 @@ pass's ``map.pass``.  The names, and their parents:
                       thread's CPU time
     rescue.search     one chunk's radius search of a rescued   rescue.read
                       read; numbers ``device`` (1 on the card,
-                      0 on the k-d tree), ``seeds``, ``matches``
+                      0 on the k-d tree), ``seeds``, ``matches``,
+                      ``past_cap`` (its queries whose answer
+                      holds ``per_cap`` matches: the tree cut
+                      them there, and the card left them to it)
     rescue.drain      the wait for the pass's rescued reads    map.pass
+
+The set-up builds are spans outside any pass (``setup_span``), kept by
+what they built, with no parent, batch or pass: ``setup.index`` (the
+``SignalIndex``'s ``build_span``, ``index/build.py:build_index``),
+``setup.tree`` (the ``Oracle``'s ``build_span``, its k-d tree) and
+``setup.tile_store`` (the mapper's tile store).  Every pass's record
+carries the mapper's as a list, ``build``, in that order and without the
+tree while the oracle is not built, and the counter ``store_bytes``: the
+bytes of the tile store on the device (tiles, meta, cell table, rotation,
+mean and origin; the cell sort's permutation and the index's values, which
+the rescue reads, stay on the host).
 
 A child lies inside its parent, but for ``rescue.read``: a rescued read
 is submitted inside its batch's epilogue and runs on a rescue thread when
@@ -85,6 +99,24 @@ def profiler_recording() -> bool:
     ``torch.autograd.profiler`` reads True in both cases."""
     return (torch.autograd._profiler_enabled()
             or torch.autograd.profiler._is_profiler_enabled)
+
+
+@contextlib.contextmanager
+def setup_span(name: str):
+    """Record the work of the ``with`` body as the set-up span ``name``,
+    kept by its caller; inside ``record_function(name)`` while a torch
+    profiler records.  Yields the ``Span``."""
+    sp = Span(name, time.perf_counter(),
+              thread=threading.current_thread().name)
+    try:
+        if profiler_recording():
+            with torch.profiler.record_function(name):
+                yield sp
+        else:
+            yield sp
+    finally:
+        if sp.t1 is None:
+            sp.close()
 
 
 def new_pass(pass_id: int) -> dict:

@@ -17,8 +17,8 @@ staged in a pinned host buffer, the upload, the quantization and
 batch N's rounds run on the caller's stream; the caller's stream waits on
 the batch's event before its first round (``TurboMapper.streaming_map``).
 Smaller batches are prepared inline, one after another.  The tile store is
-built on the host (``SweepIndex.build_cached(materialize=True)``) and
-uploaded once.
+built once, on the mapper's device (``SweepIndex.build_cached``), or read
+from ``runtime.sweep_cache_dir`` where an earlier build wrote it.
 
 A batch's ``batch_features`` runs its B * NC chunk rows in blocks of at
 most ``HEAD_ROWS`` (``head_blocks``), so the head's device memory is one
@@ -52,7 +52,7 @@ from ..io.paf import ChainsSummary, PAFRecord, streaming_tags
 from ..io.signals import ReadSignal
 from ..ops.chain_fused import chain_fused, check_fits
 from ..signal.events import batch_generate_features
-from .spans import Span, new_pass, span
+from .spans import Span, new_pass, setup_span, span
 from .sweep_search import SEED_PAD, sweep_round
 
 NEG = -1.0e30
@@ -96,7 +96,7 @@ class TileStore:
     """The sweep index on the device (index/sweep.py layout)."""
 
     tiles: torch.Tensor    # [T, 8, TILE] f32 rotated coords
-    meta: torch.Tensor     # [T, 8, TILE//8] i32 (group << 25) | tpos
+    meta: torch.Tensor     # [T, 8, TILE//8] i32 (group << pos_bits) | tpos
     cum: torch.Tensor      # [prod(radixes)+1] i32 cumulative cell table
     rot: torch.Tensor      # [dim, dim] f32
     mu: torch.Tensor       # [dim] f32
@@ -109,6 +109,12 @@ class TileStore:
     # cell sort's permutation (tile slot -> index window) and the cell table
     perm: np.ndarray | None = None
     cum_host: np.ndarray | None = None
+    pos_bits: int = META_POS_BITS     # meta's split (index/sweep.py)
+
+    def device_bytes(self) -> int:
+        """The bytes of its tensors on the device."""
+        return sum(t.numel() * t.element_size() for t in (
+            self.tiles, self.meta, self.cum, self.rot, self.mu, self.origin))
 
 
 def _put(a, dt, dev):
@@ -117,9 +123,14 @@ def _put(a, dt, dev):
     return torch.from_numpy(np.require(a, dt, ["C", "W"])).to(dev)
 
 
-def tile_store_from_sweep(sw: SweepIndex, device) -> TileStore:
-    """Host SweepIndex (built with materialize=True) -> device tensors."""
-    if sw.tiles is None:
+def tile_store_from_sweep(sw: SweepIndex, device, tiles=None,
+                          meta=None) -> TileStore:
+    """Host SweepIndex (built with materialize=True) -> device tensors;
+    ``tiles`` and ``meta`` where they are on the device already
+    (``SweepIndex.build_cached``).  A SweepIndex of the JAX package, which
+    the parity tests pass, has no ``pos_bits``: its split is fixed at 25
+    (META_POS_BITS)."""
+    if tiles is None and sw.tiles is None:
         raise ValueError("SweepIndex was built without materialized tiles")
     dev = torch.device(device)
 
@@ -127,11 +138,13 @@ def tile_store_from_sweep(sw: SweepIndex, device) -> TileStore:
         return _put(a, dt, dev)
 
     return TileStore(
-        tiles=put(sw.tiles, np.float32), meta=put(sw.meta, np.int32),
+        tiles=put(sw.tiles, np.float32) if tiles is None else tiles,
+        meta=put(sw.meta, np.int32) if meta is None else meta,
         cum=put(sw.cum, np.int32), rot=put(sw.rot, np.float32),
         mu=put(sw.mu, np.float32), origin=put(sw.origin, np.float32),
         radixes=tuple(sw.radixes), span=sw.span, cell_width=sw.cell_width,
         tile=sw.tile, perm=sw.perm, cum_host=sw.cum,
+        pos_bits=getattr(sw, "pos_bits", META_POS_BITS),
     )
 
 
@@ -208,14 +221,16 @@ def build_seeds(feats, counts, offsets, S: int, step: int, dim: int,
     return seeds, qpos, has_f, seed_ovf
 
 
-def anchors_qpos_major(m_meta, m_d2, wrote, qpos, B: int, S: int, K: int):
-    """Sweep outputs -> chaining inputs in qpos-major [S*K, B] layout."""
+def anchors_qpos_major(m_meta, m_d2, wrote, qpos, B: int, S: int, K: int,
+                       pos_bits: int = META_POS_BITS):
+    """Sweep outputs -> chaining inputs in qpos-major [S*K, B] layout;
+    ``pos_bits``: the store's meta split."""
     m_meta = m_meta.reshape(B, S, K)
     kk = torch.arange(K, device=m_meta.device)
     a_valid = kk[None, None, :] < wrote.reshape(B, S)[:, :, None]
-    pos_mask = (1 << META_POS_BITS) - 1
+    pos_mask = (1 << pos_bits) - 1
     n_t = (m_meta & pos_mask).reshape(B, S * K).t()
-    n_g = torch.where(a_valid, m_meta >> META_POS_BITS, -1)
+    n_g = torch.where(a_valid, m_meta >> pos_bits, -1)
     n_g = n_g.reshape(B, S * K).t()
     n_d = m_d2.reshape(B, S * K).t()
     n_q = qpos[:, :, None].expand(B, S, K).reshape(B, S * K).t()
@@ -237,6 +252,7 @@ class RoundSearch:
     m_d2: torch.Tensor        # [B*S, K] f32
     cnt: torch.Tensor         # [B*S] i32 exact match totals
     wrote: torch.Tensor       # [B*S] i32 slots filled
+    pos_bits: int = META_POS_BITS   # the store's meta split
 
     def slots(self) -> tuple:
         """The match slots, in merge_matches' argument order."""
@@ -293,7 +309,7 @@ def round_search(store: TileStore, feats, counts_r, n_full, st: RoundState,
         span=store.span, cell_width=store.cell_width,
     )
     return RoundSearch(active, counts, has_f, seed_ovf, qpos, m_meta, m_d2,
-                       cnt, wrote)
+                       cnt, wrote, store.pos_bits)
 
 
 def merged(rs: RoundSearch, merge_matches) -> RoundSearch:
@@ -310,7 +326,7 @@ def anchors_from_search(rs: RoundSearch, st: RoundState,
     B = rs.active.shape[0]
     S, K, RING = p.S, p.K, p.RING
     n_t, n_q, n_d, n_g = anchors_qpos_major(rs.m_meta, rs.m_d2, rs.wrote,
-                                            rs.qpos, B, S, K)
+                                            rs.qpos, B, S, K, rs.pos_bits)
     c_t, c_q, c_g = st.carry[:3]
     return RoundAnchors(
         active=rs.active, counts=rs.counts, has_f=rs.has_f,
@@ -645,7 +661,9 @@ class TurboMapper:
             index.derive_window_metadata()
         self.p = params if params is not None else TurboParams()
         self.p.check(self.device)
-        self.store = self._tile_store()
+        with setup_span("setup.tile_store") as sp:
+            self.store = self._tile_store()
+        self._store_span = sp
         self._oracle = oracle
         self._oracle_lock = threading.Lock()
         self._oracle_kicked = False
@@ -681,12 +699,21 @@ class TurboMapper:
         self._head_graphs: dict = {}
 
     def _tile_store(self) -> TileStore:
-        """The tile store this mapper searches: the whole index's."""
-        sw = SweepIndex.build_cached(
+        """The tile store this mapper searches: the whole index's, built
+        on the mapper's device, or read from ``runtime.sweep_cache_dir``
+        where an earlier build wrote it (``SweepIndex.build_cached``)."""
+        sw, tiles, meta = SweepIndex.build_cached(
             self.index, self.cfg.mapping.search_radius, tile=self.p.TILE,
-            cache_dir=self.cfg.runtime.sweep_cache_dir, materialize=True,
-        )
-        return tile_store_from_sweep(sw, self.device)
+            cache_dir=self.cfg.runtime.sweep_cache_dir, device=self.device)
+        return tile_store_from_sweep(sw, self.device, tiles, meta)
+
+    def build_spans(self) -> list:
+        """The set-up spans of what this mapper runs on: its index's
+        ``setup.index``, its oracle's ``setup.tree`` (once it is built) and
+        its own ``setup.tile_store`` (mapping/spans.py)."""
+        found = [getattr(self.index, "build_span", None),
+                 getattr(self._oracle, "build_span", None), self._store_span]
+        return [sp for sp in found if sp is not None]
 
     def _get_oracle(self):
         with self._oracle_lock:
@@ -722,7 +749,8 @@ class TurboMapper:
             if not on_card:
                 got = tree.radius_batch(queries, radius_sq, per_cap=per_cap)
             ss.numbers.update(device=int(on_card), seeds=len(queries),
-                              matches=len(got[0]))
+                              matches=len(got[0]),
+                              past_cap=int((got[2] >= per_cap).sum()))
         with self._card_lock:
             if on_card:
                 self.n_rescue_search_device += 1
@@ -835,6 +863,8 @@ class TurboMapper:
         # and the reads (indices into signals) whose capacity overflowed
         # (row 7 of rb_i) and those the exact engine re-mapped
         self.last_pass = stamps = new_pass(next(self._pass_ids))
+        stamps.update(build=self.build_spans(),
+                      store_bytes=self.store.device_bytes())
         with span(stamps, "map.pass", None, t0=stamps["start"]):
             if not self._overlap_batches:
                 for bi, (base, batch) in enumerate(batches):

@@ -52,6 +52,9 @@ def _load():
     ]
     lib.sig_kd_build.restype = c.c_void_p
     lib.sig_kd_build.argtypes = [c.c_void_p, c.c_int64, c.c_int32, c.c_int32]
+    lib.sig_kd_layout.restype = c.c_int64
+    lib.sig_kd_layout.argtypes = [c.c_void_p, c.c_void_p, c.c_void_p,
+                                  c.c_void_p]
     lib.sig_kd_free.argtypes = [c.c_void_p]
     lib.sig_kd_radius.restype = c.c_int64
     lib.sig_kd_radius.argtypes = [
@@ -188,6 +191,8 @@ class KdTree:
     """Exact k-d tree over overlapping windows of a flat value array.
 
     Point i coords = vals[i + d], d in [0, dim); n_points = len(vals)-dim+1.
+    Built on every core the process may run on (its affinity mask); the
+    tree, and so every answer, is the same on any number of them.
     """
 
     def __init__(self, vals: np.ndarray, dim: int, max_leaf: int = 20):
@@ -200,6 +205,18 @@ class KdTree:
             self._tree = self._lib.sig_kd_build(
                 _ptr(self.vals), len(self.vals), dim, max_leaf
             )
+
+    def layout(self):
+        """(order [n_points] i32, links [n_nodes, 5] i32, splits [n_nodes]
+        f32): the windows in leaf order, and each node's left, right,
+        begin, end and split dim, and its split value."""
+        n = self._lib.sig_kd_layout(self._tree, None, None, None)
+        order = np.empty(max(self.n_points, 0), np.int32)
+        links = np.empty((n, 5), np.int32)
+        splits = np.empty(n, np.float32)
+        self._lib.sig_kd_layout(self._tree, _ptr(order), _ptr(links),
+                                _ptr(splits))
+        return order, links, splits
 
     def __del__(self):
         if getattr(self, "_tree", None) and self._lib is not None:

@@ -25,7 +25,12 @@ class Oracle:
         self.cfg = config
         if index.win_group is None:
             index.derive_window_metadata()
-        self.tree = native.KdTree(index.values, index.dim, index.max_leaf)
+        from .mapping.spans import setup_span
+
+        with setup_span("setup.tree") as sp:
+            self.tree = native.KdTree(index.values, index.dim,
+                                      index.max_leaf)
+        self.build_span = sp
         self.num_refs = len(index.ref_names)
 
     def features_for(self, pa: np.ndarray) -> np.ndarray:

@@ -33,7 +33,7 @@ import torch.distributed as dist
 
 from ..config import SigmapConfig
 from ..index.build import SignalIndex
-from ..index.sweep import PAD_COORD, SweepIndex
+from ..index.sweep import META_POS_BITS, PAD_COORD, SweepIndex
 from ..io.paf import PAFRecord
 from ..io.signals import ReadSignal
 from ..mapping.turbo import (TileStore, TurboMapper, TurboParams, _on_stream,
@@ -56,6 +56,7 @@ class ShardedSweep:
     geom: tuple         # (radixes, span, cell_width)
     n_windows: int
     tile: int
+    pos_bits: int = META_POS_BITS   # meta's split (index/sweep.py)
 
     @staticmethod
     def build(idx: SignalIndex, radius: float, n_shards: int,
@@ -64,13 +65,13 @@ class ShardedSweep:
         """turbo_shard.py:64-91 on ``SweepIndex.build_cached``: padding
         tiles hold PAD_COORD in row 0 and zero meta; shard i's table is
         clip(cum - i * Tl * tile, 0, Tl * tile)."""
-        sw = SweepIndex.build_cached(idx, radius, tile=tile,
-                                     cache_dir=cache_dir, materialize=True)
-        T = sw.n_tiles
+        sw, tiles, meta = SweepIndex.build_cached(idx, radius, tile=tile,
+                                                  cache_dir=cache_dir)
+        tiles = tiles.numpy()
+        meta = meta.numpy()
+        T = len(tiles)
         Tl = -(-T // n_shards)
         pad = Tl * n_shards - T
-        tiles = sw.tiles
-        meta = sw.meta
         if pad:
             pt = np.zeros((pad, 8, tile), np.float32)
             pt[:, 0, :] = PAD_COORD
@@ -88,7 +89,7 @@ class ShardedSweep:
             meta=meta.reshape(n_shards, Tl, 8, tile // 8),
             cum=cum, rot=sw.rot, mu=sw.mu, origin=sw.origin,
             geom=(sw.radixes, sw.span, sw.cell_width),
-            n_windows=sw.n_windows, tile=tile,
+            n_windows=sw.n_windows, tile=tile, pos_bits=sw.pos_bits,
         )
 
 
@@ -103,7 +104,7 @@ def tile_store_from_shard(ss: ShardedSweep, i: int, device) -> TileStore:
         cum=_put(ss.cum[i], np.int32, dev),
         rot=_put(ss.rot, np.float32, dev), mu=_put(ss.mu, np.float32, dev),
         origin=_put(ss.origin, np.float32, dev), radixes=tuple(radixes),
-        span=span, cell_width=cell_width, tile=ss.tile,
+        span=span, cell_width=cell_width, tile=ss.tile, pos_bits=ss.pos_bits,
     )
 
 

@@ -175,6 +175,38 @@ def test_sweep_kernel_matches_plain_on_gpu(sweep_index, cuda_device):
 
 # --- the rescue's card search (rescue_search) -------------------------------
 
+def test_card_builders_equal_the_host_builders(gpu_pore, cuda_device):
+    """At E. coli K-12's size (4,641,652 random bases, some 9.2 M windows)
+    the index and the tile store built on the card equal the host
+    builders' bit for bit."""
+    from sigmap_tpu_torch import builders
+    from sigmap_tpu_torch.config import IndexConfig
+    from sigmap_tpu_torch.index.build import build_index_host
+    from sigmap_tpu_torch.index.sweep import SweepIndex
+    from sigmap_tpu_torch.io.fasta import ReferenceSequence
+    from sigmap_tpu_torch.synth import random_genome
+
+    g = random_genome(4_641_652, seed=12)
+    host = build_index_host([ReferenceSequence(n, c.copy()) for n, c in g],
+                            gpu_pore, IndexConfig(), SEARCH_RADIUS)
+    card = builders.build_index(
+        [ReferenceSequence(n, c.copy()) for n, c in g], gpu_pore,
+        IndexConfig(), SEARCH_RADIUS, cuda_device)
+    for f in ("values", "positions", "perm", "cell_keys", "cell_starts",
+              "win_group", "win_pos"):
+        a, b = getattr(host, f), getattr(card, f)
+        assert a.dtype == b.dtype and np.array_equal(a, b), f
+    want = SweepIndex.build(host, SEARCH_RADIUS, tile=1024)
+    got = builders.materialize(*builders.sweep_store(
+        card, SEARCH_RADIUS, tile=1024, device=cuda_device))
+    for f in ("tiles", "meta", "cum", "rot", "mu", "origin", "perm",
+              "meta_flat"):
+        a, b = getattr(want, f), getattr(got, f)
+        assert a.dtype == b.dtype and np.array_equal(a, b), f
+    for f in ("radixes", "n_windows", "cell_width", "pos_bits"):
+        assert getattr(want, f) == getattr(got, f), f
+
+
 def test_rescue_search_kernel_matches_plain_on_gpu(sweep_index, cuda_device):
     """The kernel's candidates equal its plain version's on the same seeds
     and tile store: each seed's count and the total exactly, and the set of

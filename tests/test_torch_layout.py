@@ -34,6 +34,7 @@ MODULES = [
     "sigmap_tpu_torch.parallel.turbo_shard",
     "sigmap_tpu_torch.parallel.multihost",
     "sigmap_tpu_torch.ops.rescue_search", "sigmap_tpu_torch.mapping.rescue",
+    "sigmap_tpu_torch.builders",
 ]
 
 BLOCKER = """

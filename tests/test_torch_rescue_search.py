@@ -125,7 +125,9 @@ def test_card_search_equals_the_kd_tree(setup, kind):
 def test_a_query_past_per_cap_takes_the_tree(setup):
     """With a per_cap some query passes, the card answers None and the
     mapper's chunk search returns the tree's arrays as they are, in a
-    rescue.search span with device 0, counted on the host."""
+    rescue.search span with device 0 and its queries past per_cap
+    (``past_cap``, those whose answer holds per_cap matches), counted on
+    the host."""
     cfg, idx, _, oracle, card = setup
     q = _queries(idx, "random")
     want = oracle.tree.radius_batch(q, RADIUS, per_cap=2)
@@ -147,8 +149,10 @@ def test_a_query_past_per_cap_takes_the_tree(setup):
         np.testing.assert_array_equal(a, b)
     searches = [s for s in stamps["spans"] if s.name == "rescue.search"]
     assert [s.numbers for s in searches] == [
-        dict(device=0, seeds=len(q), matches=len(want[0])),
-        dict(device=1, seeds=len(q), matches=len(again[0]))]
+        dict(device=0, seeds=len(q), matches=len(want[0]),
+             past_cap=int((want[2] == 2).sum())),
+        dict(device=1, seeds=len(q), matches=len(again[0]), past_cap=0)]
+    assert searches[0].numbers["past_cap"] > 0
     assert all(s.parent == read.index for s in searches)
     assert (mapper.n_rescue_search_host,
             mapper.n_rescue_search_device) == (1, 1)

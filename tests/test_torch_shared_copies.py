@@ -31,6 +31,7 @@ import sigmap_tpu.ops.fastdtw as j_fastdtw
 import sigmap_tpu.parallel.multihost as j_multihost
 import sigmap_tpu.synth as j_synth
 import sigmap_tpu.utils as j_utils
+import sigmap_tpu_torch.builders as p_builders
 import sigmap_tpu_torch.cli as p_cli
 import sigmap_tpu_torch.config as p_config
 import sigmap_tpu_torch.evaluate as p_evaluate
@@ -167,6 +168,13 @@ def _indexes(data):
 def case_index_build(data, tmp):
     ji, pi = _indexes(data)
     _same_arrays(ji, pi, INDEX_FIELDS)
+    # the port's torch builder (on the CPU) against the JAX package's
+    pore, genome, _ = data
+    ti = p_builders.build_index(
+        [p_fasta.ReferenceSequence(n, c) for n, c in genome],
+        _port_pore(pore), p_config.SigmapConfig().index,
+        j_config.SigmapConfig().mapping.search_radius, "cpu")
+    _same_arrays(ji, ti, INDEX_FIELDS)
     np.testing.assert_array_equal(j_build.zscore_f64(ji.values[:100]),
                                   p_build.zscore_f64(pi.values[:100]))
     ji.save(str(tmp / "j"))
@@ -182,6 +190,10 @@ def case_index_sweep(data, tmp):
     js = j_sweep.SweepIndex.build(ji, 0.08, tile=256)
     ps = p_sweep.SweepIndex.build(pi, 0.08, tile=256)
     _same_arrays(js, ps, SWEEP_FIELDS)
+    # the port's torch store builder (on the CPU) against the JAX package's
+    ts = p_builders.materialize(*p_builders.sweep_store(pi, 0.08, tile=256,
+                                                        device="cpu"))
+    _same_arrays(js, ts, SWEEP_FIELDS)
     js.save(str(tmp / "j.npz"))
     ps.save(str(tmp / "p.npz"))
     _same_arrays(js, p_sweep.SweepIndex.load(str(tmp / "j.npz")),

@@ -177,8 +177,9 @@ def test_children_lie_inside_their_parents(passes, run):
 def test_rescue_read_spans_carry_their_cpu_time(passes, run):
     """One rescue.read a rescued read, its thread's CPU time within its
     wall time; its rescue.search spans carry where each chunk was searched
-    (the k-d tree: the CPU mapper has no card search), its seeds and its
-    matches."""
+    (the k-d tree: the CPU mapper has no card search), its seeds, its
+    matches and its queries whose answer holds per_cap matches (none at
+    this size: the cap is 5,000)."""
     stamps = passes[run].stamps
     reads = _named(stamps, "rescue.read")
     assert len(reads) == len(stamps["rescued"]) > 0
@@ -186,8 +187,10 @@ def test_rescue_read_spans_carry_their_cpu_time(passes, run):
         assert set(s.numbers) == {"cpu_s"}
         assert 0 <= s.numbers["cpu_s"] <= s.s
     for s in _named(stamps, "rescue.search"):
-        assert s.numbers.keys() == {"device", "seeds", "matches"}
+        assert s.numbers.keys() == {"device", "seeds", "matches",
+                                    "past_cap"}
         assert s.numbers["device"] == 0 and s.numbers["seeds"] > 0
+        assert s.numbers["past_cap"] == 0
     assert not any(s.numbers for s in stamps["spans"]
                    if s.name not in ("rescue.read", "rescue.search"))
 
